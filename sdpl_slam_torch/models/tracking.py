@@ -1,0 +1,1386 @@
+"""Tracking: the per-frame dynamic-SLAM pipeline (host tracking path).
+
+Counterpart of ``sdpl_slam_tpu.models.tracking`` for the synchronous host
+path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
+
+  GrabImageRGBD (Tracking.cc:179)  ->  Tracking.grab_rgbd
+    FAST pyramid on the device        ops.fast.detect_keypoints
+    depth preprocess (:195-219)       _np_preprocess_depth (host)
+    UpdateMask (:4730)                _update_mask (host)
+    selections, inheritance           frame_host (host numpy)
+  Track (:1028)                       _track
+    camera init (:2738) + joint flow+pose LM (Optimizer.cc:6409),
+    scene flow (:1989), DynObjTracking (:2077), per-object init + joint
+    flow+motion LMs (Optimizer.cc:7603) batched over objects: _solve_frame
+    on the device, one host copy of its outputs per frame
+    RenewFrameInfo (:3959), map appends (:1605-1786) on the host
+
+Per-frame tensors live on ``self.device``; host bookkeeping stays numpy,
+as in the JAX package.  Fixed capacities come from the reference's caps
+(1200 static points, 400 static lines, 800 points and 100 lines per
+object).
+
+Not in this package yet, and refused by :func:`check_supported` rather
+than run differently: local and global batch BA, the in-loop line
+detector (segments come in through ``line_detections=``), the non-joint
+solver, and the resident / chained / pipelined modes of the JAX package.
+The port runs each frame synchronously; the JAX package's own tests show
+its pipelining changes no result.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..io import native as _native
+from ..ops import fast as fast_ops
+from ..ops import geometry, lie, ransac
+from ..ops.geometry import Intrinsics
+from ..solvers import frame_solvers as fs
+from ..utils.config import KITTI, OMD, Settings
+from . import frame as fr
+from . import frame_host as fh
+from .map_state import MapState
+
+_EYE4 = np.eye(4, dtype=np.float32)
+
+
+def check_supported(cfg: Settings) -> None:
+    """Raise ``NotImplementedError`` (naming the ROADMAP item) for settings
+    this package cannot run yet; it never runs them differently."""
+    gba_fires = (cfg.run_global_ba if cfg.run_global_ba is not None
+                 else cfg.choose_data == KITTI)
+    refused = [
+        (cfg.resident_tracking, "resident_tracking (ROADMAP A10)"),
+        (cfg.chained_tracking, "chained_tracking (ROADMAP A14)"),
+        (cfg.pipelined_tracking,
+         "pipelined_tracking (ROADMAP A5: the port runs synchronously; "
+         "set pipelined_tracking=False)"),
+        (cfg.run_local_ba, "run_local_ba (ROADMAP A8; set run_local_ba=False)"),
+        (gba_fires, "run_global_ba, which fires by default on KITTI "
+                    "(ROADMAP A8; set run_global_ba=False)"),
+        (not cfg.use_joint_optimization,
+         "use_joint_optimization=False (ROADMAP A3, solve_pose_only)"),
+    ]
+    for bad, what in refused:
+        if bad:
+            raise NotImplementedError("sdpl_slam_torch does not support "
+                                      + what + " yet")
+
+
+def _np_backproject(K: Intrinsics, uv: np.ndarray, z: np.ndarray):
+    fx, fy, cx, cy = float(K.fx), float(K.fy), float(K.cx), float(K.cy)
+    x = (uv[..., 0] - cx) * z / fx
+    y = (uv[..., 1] - cy) * z / fy
+    return np.stack([x, y, z], axis=-1).astype(np.float32)
+
+
+def _np_world_points(K: Intrinsics, T_cw: np.ndarray, uv: np.ndarray,
+                     z: np.ndarray):
+    Xc = _np_backproject(K, uv, z)
+    T_wc = np.linalg.inv(T_cw)
+    return (Xc @ T_wc[:3, :3].T + T_wc[:3, 3]).astype(np.float32)
+
+
+def _np_world_lines(K: Intrinsics, T_cw: np.ndarray, uv4: np.ndarray,
+                    d2: np.ndarray):
+    s = _np_world_points(K, T_cw, uv4[..., :2], d2[..., 0])
+    e = _np_world_points(K, T_cw, uv4[..., 2:], d2[..., 1])
+    return np.concatenate([s, e], axis=-1)
+
+
+def _np_plucker(p: np.ndarray, q: np.ndarray):
+    d = q - p
+    n = np.linalg.norm(d, axis=-1, keepdims=True)
+    d = d / np.maximum(n, 1e-12)
+    return np.concatenate([np.cross(p, d), d], axis=-1).astype(np.float32)
+
+
+def _np_preprocess_depth(depth_raw: np.ndarray, choose_data: int,
+                         factor: float, bf: float) -> np.ndarray:
+    """Depth conversion on the host (Tracking.cc:192-219): renewal and map
+    logic read the preprocessed depth, and the solvers take sampled
+    depths only."""
+    d = depth_raw if depth_raw.dtype == np.float32 else depth_raw.astype(
+        np.float32
+    )
+    out = _native.depth_preprocess(d, choose_data, factor, bf)
+    if out is not None:
+        return out
+    if choose_data == KITTI:
+        with np.errstate(divide="ignore", invalid="ignore"):
+            out = (np.float32(bf * factor) / d).astype(np.float32)
+        # d <= 0 (invalid or negative disparity) -> 0
+        np.place(out, ~np.isfinite(out) | (out < 0), 0.0)
+    elif choose_data == OMD:
+        out = np.where(d < 0, np.float32(0.0), d) * np.float32(1.0 / factor)
+    else:
+        # VirtualKITTI (3) matches neither reference branch: values stay
+        # unscaled, negatives -> 0 (Tracking.cc:199-216)
+        out = np.where(d < 0, np.float32(0.0), d)
+    return out
+
+
+def obj_pose_parsing_kt(row: np.ndarray) -> np.ndarray:
+    """KITTI object-pose row -> 4x4 pose in CAMERA coordinates
+    (``ObjPoseParsingKT``, reference src/Tracking.cc:3134-3241):
+    row = [frame, track_id, B1..B4, t1, t2, t3, yaw].  The reference sets
+    y = yaw + pi/2, x = z = 0 (Tracking.cc:3147-3150) and composes
+    R = Ry*Rx*Rz (:3172-3180), which with x=z=0 reduces to Ry(yaw + pi/2);
+    t = row[6:9] is used directly (:3232-3235)."""
+    t = row[6:9].astype(np.float64)
+    yaw = float(row[9]) + np.pi / 2.0
+    cy, sy = np.cos(yaw), np.sin(yaw)
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = np.array(
+        [[cy, 0.0, sy], [0.0, 1.0, 0.0], [-sy, 0.0, cy]], np.float32
+    )
+    pose[:3, 3] = t.astype(np.float32)
+    return pose
+
+
+def obj_pose_parsing_ox(row: np.ndarray,
+                        origin_inv: np.ndarray = None) -> np.ndarray:
+    """OMD object-pose row -> 4x4 origin-aligned WORLD pose
+    (``ObjPoseParsingOX``, reference src/Tracking.cc:3243-3323):
+    row = [frame, id, t(3), axis-angle(3)]; the pose is composed as
+    inv(origin) @ [Rodrigues(aa), t] so it lives in the frame-0 camera
+    frame like the internal trajectory."""
+    pose = np.eye(4, dtype=np.float32)
+    t = row[2:5].astype(np.float64)
+    aa = row[5:8].astype(np.float64)
+    angle = float(np.linalg.norm(aa))
+    if angle > 0:
+        x, y, z = aa / angle
+        s, c = np.sin(angle), np.cos(angle)
+        v = 1.0 - c
+        pose[:3, :3] = np.array([
+            [x * x * v + c, x * y * v - z * s, x * z * v + y * s],
+            [x * y * v + z * s, y * y * v + c, y * z * v - x * s],
+            [x * z * v - y * s, y * z * v + x * s, z * z * v + c],
+        ], np.float32)
+    pose[:3, 3] = t.astype(np.float32)
+    if origin_inv is not None:
+        pose = (np.linalg.inv(origin_inv) @ pose).astype(np.float32)
+    return pose
+
+
+class Tracking:
+    """Host orchestrator holding the per-sequence state; the solvers and
+    the FAST pyramid run on ``device``."""
+
+    def __init__(self, settings: Settings, device="cpu"):
+        self.cfg = settings
+        self.device = torch.device(device)
+        self.K = Intrinsics.from_config(settings)
+        # capacities
+        self.NS = int(settings.max_track_point_bg)       # static points
+        self.NLS = int(settings.max_static_lines)        # static lines
+        self.P_OBJ = int(settings.max_track_point_obj)   # points per object
+        self.L_OBJ = int(settings.max_object_lines)      # lines per object
+        self.MAXO = int(settings.max_objects)
+        self.NO = self.MAXO * self.P_OBJ                 # total object points
+        self.NLO = self.MAXO * self.L_OBJ
+        self.N_CAND = 3000                               # static candidates
+        self.NL_CAND = max(2 * self.NLS, 64)             # line candidates
+        # GetInitModelCam's RANSAC budget: all hypotheses in parallel, with
+        # pnp_iterations as the upper bound (sdpl_slam_tpu tracking.py)
+        self.n_hyp_cam = max(min(int(settings.pnp_iterations), 128), 8)
+        self.n_hyp_obj = max(self.n_hyp_cam // 2, 8)
+
+        self.f_id = 0
+        self.max_id = 1                                  # object id counter
+        self.velocity: Optional[np.ndarray] = None       # mVelocity
+        self.origin_inv: Optional[np.ndarray] = None     # mOriginInv
+        self.last: Optional[dict] = None                 # last frame dict
+        self.last_meta: dict = {"sem_position": [], "mod_label": [],
+                                "obj_stat": [], "obj_motion": {}}
+        self.map = MapState()
+        self.mask_np: Optional[np.ndarray] = None        # current (possibly
+        #                                                  recovered) mask
+        self.last_mask_np: Optional[np.ndarray] = None   # mSegMapLast
+        self.last_flow_np: Optional[np.ndarray] = None   # mFlowMapLast
+        self._oline_label = np.full(self.NLO, -2, np.int32)
+        self._grid_cache = None
+        self.lm_host_syncs = 0                           # LM loop-exit reads
+
+    def _ransac_uniforms(self, f_id: int, lane: int, n_hyp: int) -> torch.Tensor:
+        """(n_hyp, 3) uniforms in [0, 1) for one RANSAC problem: lane 0 is
+        the camera, lane k + 1 the k-th object bucket.  Drawn from a
+        ``torch.Generator`` seeded from ``(f_id, lane)``, so a frame's
+        draws depend on nothing else (the JAX package folds the frame key
+        by lane index for the same reason).  The generator is a CPU one
+        and the draws are copied to the tracker's device: CUDA and CPU
+        generators give different streams from one seed, and this way a
+        CPU run and a CUDA run take the same samples.  Tests override
+        this to feed JAX's draws."""
+        gen = torch.Generator()
+        gen.manual_seed(int(f_id) * 100003 + int(lane))
+        return torch.rand((n_hyp, 3), generator=gen).to(self.device)
+
+    def _fast_cfg(self):
+        cfg = self.cfg
+        return fast_ops.FastPyramidConfig(
+            n_features=min(cfg.orb_n_features, self.N_CAND),
+            scale_factor=cfg.orb_scale_factor,
+            n_levels=cfg.orb_n_levels,
+            ini_threshold=float(cfg.orb_ini_th_fast),
+            min_threshold=float(cfg.orb_min_th_fast),
+        )
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def grab_rgbd(
+        self,
+        gray: np.ndarray,
+        depth_raw: np.ndarray,
+        flow: np.ndarray,
+        mask: np.ndarray,
+        gt_pose: np.ndarray,
+        obj_poses_gt: List[np.ndarray],
+        timestamp: float,
+        n_images: int,
+        line_detections: Optional[np.ndarray] = None,
+        point_detections: Optional[np.ndarray] = None,
+    ) -> np.ndarray:
+        """Process one frame; returns the estimated camera pose T_cw.
+
+        ``line_detections``: (L, 4) detected segments -- required while
+        ``use_lines`` is on, since the in-loop line detector is not ported
+        yet.  ``point_detections``: optional (P, 2) corners replacing the
+        FAST pyramid.
+        """
+        cfg = self.cfg
+        h, w = gray.shape
+        timing = np.zeros(5, np.float32)
+        if cfg.use_lines and line_detections is None:
+            raise NotImplementedError(
+                "sdpl_slam_torch has no in-loop line detector yet (ROADMAP "
+                "A7): pass line_detections= or set use_lines=False")
+
+        # --- stop frame semantics (Tracking.cc:184) ---
+        stop_frame = (
+            cfg.stop_frame if cfg.stop_frame is not None else n_images - 1
+        )
+
+        # --- GT pose handling (Tracking.cc:477-489) ---
+        if self.f_id == 0 or self.origin_inv is None:
+            self.origin_inv = np.asarray(gt_pose, np.float32)
+            pose_gt = np.linalg.inv(self.origin_inv).astype(np.float32)
+        else:
+            pose_gt = (
+                np.linalg.inv(np.asarray(gt_pose, np.float32))
+                @ self.origin_inv
+            ).astype(np.float32)
+
+        t0 = time.perf_counter()
+        det = None
+        if cfg.use_sample_fea == 0 and point_detections is None:
+            det = self._detect(gray)
+        depth_now = _np_preprocess_depth(
+            np.asarray(depth_raw, np.float32), cfg.choose_data,
+            cfg.depth_map_factor, cfg.bf,
+        )
+        flow_np = np.ascontiguousarray(flow, dtype=np.float32)
+
+        # --- mask recovery (UpdateMask, Tracking.cc:4730-4810) ---
+        self.mask_np = np.asarray(mask, np.int32).copy()
+        if self.f_id > 0 and self.last is not None:
+            self._update_mask()
+        self.depth_np = depth_now
+        # object candidates come from the stride-4 mask grid, not the
+        # detector (Frame.cc:769-809)
+        obj_tmp = fh.select_object_points(
+            self.depth_np, flow_np, self.mask_np, cfg.th_depth_obj, self.NO,
+        )
+        timing[0] = (time.perf_counter() - t0) * 1e3
+
+        gt_objs = [np.asarray(r, np.float32) for r in obj_poses_gt]
+        if self.f_id == 0 or self.last is None:
+            stat_tmp, line_tmp, oline_tmp = self._finish_selection(
+                det, point_detections, line_detections, flow_np, h, w,
+            )
+            self._initialize(stat_tmp, line_tmp, obj_tmp,
+                             oline_tmp, pose_gt, gt_objs)
+            pose = np.asarray(self.last["pose"])
+        else:
+            pose = self._track(
+                flow_np, obj_tmp, pose_gt, gt_objs, timing, stop_frame,
+                det, point_detections, line_detections,
+            )
+        self.last_mask_np = self.mask_np.copy()
+        self.last_flow_np = np.asarray(flow, np.float32)
+        self.f_id += 1
+        return pose
+
+    # ------------------------------------------------------------------
+    def _detect(self, gray: np.ndarray):
+        """FAST pyramid on the tracker's device -> host (uv, valid)."""
+        img = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
+        uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
+        return uv.cpu().numpy(), valid.cpu().numpy()
+
+    def _finish_selection(self, det, point_detections,
+                          line_detections, flow_np, h, w):
+        """Static point / static line / object line selections
+        (Frame.cc:491-718, :814-875) from this frame's detections."""
+        cfg = self.cfg
+        cand = np.zeros((self.N_CAND, 2), np.float32)
+        cand_valid = np.zeros(self.N_CAND, bool)
+        if det is not None:
+            d_uv, d_valid = det
+            # keypoint undistortion (Frame::UndistortKeyPoints,
+            # Frame.cc:1037-1081): identity when all coefficients are zero
+            d_uv = geometry.undistort_points_np(
+                d_uv, cfg.fx, cfg.fy, cfg.cx, cfg.cy,
+                cfg.k1, cfg.k2, cfg.p1, cfg.p2, cfg.k3,
+            )
+            n = min(len(d_uv), self.N_CAND)
+            cand[:n] = d_uv[:n]
+            cand_valid[:n] = d_valid[:n]
+        elif point_detections is not None and cfg.use_sample_fea == 0:
+            n = min(len(point_detections), self.N_CAND)
+            cand[:n] = point_detections[:n]
+            cand_valid[:n] = True
+        else:
+            # constant per image size: cached
+            if self._grid_cache is None or self._grid_cache[0] != (h, w):
+                self._grid_cache = ((h, w), fr.grid_sample_uv(
+                    h, w, n_points=self.N_CAND).numpy())
+            cand = self._grid_cache[1]
+            cand_valid = np.ones(self.N_CAND, bool)
+
+        lcand = np.zeros((self.NL_CAND, 4), np.float32)
+        lcand_valid = np.zeros(self.NL_CAND, bool)
+        if line_detections is not None and len(line_detections):
+            n = min(len(line_detections), self.NL_CAND)
+            lcand[:n] = line_detections[:n]
+            lcand_valid[:n] = True
+
+        stat_tmp = _native.select_static_points(
+            cand, cand_valid, self.depth_np, flow_np, self.mask_np,
+            cfg.th_depth_bg, self.NS,
+        )
+        if stat_tmp is None:
+            stat_tmp = fh.select_static_points(
+                cand, cand_valid, self.depth_np, flow_np, self.mask_np,
+                cfg.th_depth_bg, self.NS,
+            )
+        line_tmp = _native.select_static_lines(
+            lcand, lcand_valid, self.depth_np, flow_np, self.mask_np,
+            cfg.th_depth_bg, self.NLS,
+        )
+        if line_tmp is None:
+            line_tmp = fh.select_static_lines(
+                lcand, lcand_valid, self.depth_np, flow_np, self.mask_np,
+                cfg.th_depth_bg, self.NLS,
+            )
+        oline_tmp = _native.select_object_lines(
+            lcand, lcand_valid, self.depth_np, flow_np, self.mask_np,
+            cfg.th_depth_obj, self.NLO,
+        )
+        if oline_tmp is None:
+            oline_tmp = fh.select_object_lines(
+                lcand, lcand_valid, self.depth_np, flow_np, self.mask_np,
+                cfg.th_depth_obj, self.NLO,
+            )
+        return stat_tmp, line_tmp, oline_tmp
+
+    # ------------------------------------------------------------------
+    def _track(self, flow_np, obj_tmp, pose_gt, gt_objs, timing, stop_frame,
+               det, point_detections, line_detections):
+        """One tracked frame: inherit, group objects, solve camera and
+        objects on the device, commit labels, renew features, append to
+        the map."""
+        cfg = self.cfg
+        last = self.last
+        h, w = self.mask_np.shape
+
+        # ---- inherit from last frame (host; Tracking.cc:269-473) ----
+        (s_uv, s_d, l_uv, l_d, o_uv, o_d, o_sem, ol_uv, ol_d,
+         ol_sem) = fh.inherit(
+            last["stat_corres"], last["line_corres"], last["obj_corres"],
+            last["oline_corres"], self.depth_np, self.mask_np,
+            cfg.th_depth_obj,
+        )
+        s_v = last["stat_valid"]
+        l_v = last["line_valid"]
+        o_v = last["obj_valid"]
+        ol_v = last["oline_valid"]
+        last_s_valid = s_v & (last["stat_depth"] > 0) & (s_d > 0)
+        line_ok = fh.line_track_filter(l_uv, l_v, self.depth_np, self.mask_np)
+        l_use = l_v & (last["line_depth"].min(axis=-1) > 0) & line_ok
+        velocity_np = self.velocity if self.velocity is not None else _EYE4
+
+        # ---- group objects by semantic label (the mask-only parts of
+        # DynObjTracking: Tracking.cc:2112-2523) ----
+        t0 = time.perf_counter()
+        sf_valid = (
+            o_v & last["obj_valid"] & (last["obj_sem"] > 0) & (o_sem > 0)
+        )
+        groups = self._group_objects(
+            o_uv, o_d, o_sem, sf_valid, ol_uv, ol_sem, ol_v
+        )
+        buckets = self._build_buckets(groups, o_uv, o_d, ol_uv, sf_valid)
+        timing[2] = (time.perf_counter() - t0) * 1e3
+
+        # ---- camera + objects on the device, one host copy back ----
+        t0 = time.perf_counter()
+        out = self._solve_frame(velocity_np, last, s_uv, s_d, last_s_valid,
+                                l_use, buckets)
+        pose_np = out["pose"]
+        stat_track_ok, line_track_ok = out["point_inlier"], out["line_inlier"]
+        # update tracked positions from optimised flow (Optimizer.cc:6796)
+        s_uv = np.where(stat_track_ok[:, None], last["stat_uv"] + out["flow"],
+                        s_uv)
+        l_uv = np.where(line_track_ok[:, None],
+                        last["line_uv"] + out["line_flow"], l_uv)
+        obj_pulled = None
+        if buckets is not None:
+            n_obj = len(groups)
+            obj_pulled = tuple(out[k][:n_obj] for k in (
+                "o_pose", "o_flow", "o_line_flow", "o_point_inlier",
+                "o_line_inlier", "o_init_n", "o_static_frac"))
+        timing[1] = (time.perf_counter() - t0) * 1e3
+
+        # ---- selections from this frame's detections ----
+        t0 = time.perf_counter()
+        stat_tmp, line_tmp, oline_tmp = self._finish_selection(
+            det, point_detections, line_detections, flow_np, h, w,
+        )
+        timing[0] += (time.perf_counter() - t0) * 1e3
+
+        # velocity (Tracking.cc:1177-1183)
+        self.velocity = (pose_np @ np.linalg.inv(last["pose"])).astype(
+            np.float32
+        )
+
+        # ---- commit object labels + per-object meta (the pose-dependent
+        # tail of DynObjTracking + Tracking.cc:1277-1528) ----
+        t0 = time.perf_counter()
+        obj_label, oline_label, obj_meta = self._commit_objects(
+            groups, obj_pulled, pose_np, pose_gt, gt_objs, last
+        )
+        self._oline_label = oline_label
+        obj_track_ok = np.zeros(self.NO, bool)
+        oline_track_ok = np.zeros(self.NLO, bool)
+        o_uv_np = np.array(o_uv)
+        ol_uv_np = np.array(ol_uv)
+        for om in obj_meta:
+            if not om["stat"]:
+                continue
+            idx = om["pt_idx"]
+            fl = om["flow"][: len(idx)]
+            inl = om["pt_inlier"][: len(idx)]
+            o_uv_np[idx[inl]] = last["obj_uv"][idx[inl]] + fl[inl]
+            obj_track_ok[idx[inl]] = True
+            lidx = om["ln_idx"]
+            if len(lidx):
+                lfl = om["ln_flow"][: len(lidx)]
+                linl = om["ln_inlier"][: len(lidx)]
+                ol_uv_np[lidx[linl]] = last["oline_uv"][lidx[linl]] + lfl[linl]
+                oline_track_ok[lidx[linl]] = True
+        timing[3] = (time.perf_counter() - t0) * 1e3
+
+        # ================= RENEW =================
+        t0 = time.perf_counter()
+        new_state = self._renew_frame_info(
+            self.depth_np, self.mask_np,
+            pose_np, flow_np, stat_tmp, line_tmp, obj_tmp, oline_tmp,
+            s_uv, s_d, stat_track_ok,
+            l_uv, l_d, line_track_ok,
+            o_uv_np, o_d, o_sem, obj_label, obj_track_ok,
+            ol_uv_np, ol_d, ol_sem, ol_v, oline_track_ok,
+            pose_gt, gt_objs,
+        )
+        timing[4] = (time.perf_counter() - t0) * 1e3
+
+        # ================= MAP =================
+        prev_pose_gt = last["pose_gt"]
+        self.last = new_state
+        self.last_meta = {
+            "sem_position": [om["sem"] for om in obj_meta],
+            "mod_label": [om["label"] for om in obj_meta],
+            "obj_stat": [om["stat"] for om in obj_meta],
+            "obj_motion": {
+                om["label"]: om["H"] for om in obj_meta if om["stat"]
+            },
+        }
+        self._push_map(new_state, pose_np, pose_gt, prev_pose_gt,
+                       self.velocity, obj_meta, timing)
+        return pose_np
+
+    # ------------------------------------------------------------------
+    def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
+
+    def _init_model(self, u, model, T_lw, last_uv, last_depth, cur_uv,
+                    cur_depth, valid):
+        """GetInitModelCam / GetInitModelObj (Tracking.cc:2738-2972) over
+        B lanes: RANSAC against the motion model ``model`` (B, 4, 4);
+        whichever has more inliers wins and its inlier set becomes the
+        solve's point subset.  Returns (T_init, subset, n_inliers)."""
+        K, thr = self.K, self.cfg.pnp_reproj_error
+        X_w = fr.world_points(K, T_lw, last_uv, last_depth)
+        X_c = geometry.backproject(K, cur_uv, cur_depth)
+        rs = ransac.ransac_rigid_init(X_w, cur_uv, X_c,
+                                      valid & (cur_depth > 0), K, u, thr)
+        xyz = lie.transform_point(model, X_w)
+        rpe = torch.linalg.norm(cur_uv - geometry.project(K, xyz), dim=-1)
+        mm_inl = valid & (xyz[..., 2] > 0) & (rpe < thr)
+        mm_n = mm_inl.sum(-1, dtype=torch.int32)
+        use_ransac = rs.n_inliers > mm_n
+        T_init = torch.where(use_ransac[:, None, None], rs.pose, model)
+        subset = torch.where(use_ransac[:, None], rs.inliers, mm_inl)
+        return T_init, subset, torch.maximum(rs.n_inliers, mm_n)
+
+    def _solve_frame(self, velocity_np, last, s_uv, s_d, last_s_valid,
+                     l_use, buckets):
+        """Camera init -> joint camera solve -> scene-flow static test ->
+        object inits -> joint object solves on ``self.device``; returns
+        the outputs as host numpy arrays."""
+        cfg, K, t = self.cfg, self.K, self._tensor
+        T_lw = t(last["pose"])
+        T_wl = torch.linalg.inv(T_lw)
+        s_obs, s_depth = t(last["stat_uv"])[None], t(last["stat_depth"])[None]
+        u_cam = self._ransac_uniforms(self.f_id, 0, self.n_hyp_cam)[None]
+        T_init, subset, _ = self._init_model(
+            u_cam, (t(velocity_np) @ T_lw)[None], T_lw, s_obs, s_depth,
+            t(s_uv)[None], t(s_d)[None], t(last_s_valid, torch.bool)[None])
+        solve = functools.partial(
+            fs.solve_flow_pose, K=K, rp_thres=cfg.rp_thres,
+            max_iterations=cfg.lm_iterations, rel_tol=cfg.lm_rel_tol)
+        cam = solve(
+            T_init, T_wl,
+            fs.PointBundle(s_obs, t(last["stat_flow"])[None], s_depth, subset),
+            fs.LineBundle(t(last["line_uv"])[None], t(last["line_flow"])[None],
+                          t(last["line_depth"])[None],
+                          t(l_use, torch.bool)[None]),
+            flow_prior_info=cfg.flow_prior_info_cam,
+            line_prior_info=cfg.flow_prior_info_cam, use_lines=cfg.use_lines)
+        self.lm_host_syncs += cam.host_syncs
+        outs = dict(pose=cam.pose[0], flow=cam.flow[0],
+                    line_flow=cam.line_flow[0],
+                    point_inlier=cam.point_inlier[0],
+                    line_inlier=cam.line_inlier[0])
+        if buckets is not None:
+            b = {k: (t(v, torch.bool) if v.dtype == bool else t(v))
+                 for k, v in buckets.items() if k != "any_lines"}
+            pose = cam.pose[0]
+            MB = b["pt_obs"].shape[0]
+            # scene-flow static test (GetSceneFlowObj + DynObjTracking's
+            # x-z scene-flow fraction, Tracking.cc:1989-2075/:2528-2560)
+            Xp_w = lie.transform_point(
+                T_wl, geometry.backproject(K, b["pt_obs"], b["pt_depth"]))
+            Xc_w = lie.transform_point(
+                torch.linalg.inv(pose),
+                geometry.backproject(K, b["pt_cur_uv"], b["pt_cur_d"]))
+            f3 = Xc_w - Xp_w
+            sfn = torch.sqrt(f3[..., 0] ** 2 + f3[..., 2] ** 2)
+            v = b["pt_sfvalid"].to(torch.float32)
+            n = torch.clamp(v.sum(-1), min=1.0)
+            static_frac = (v * (sfn < cfg.sf_mg_thres)).sum(-1) / n
+            # motion-model branch of GetInitModelObj: G = T_cw_cur . H_last
+            T_models = pose @ b["H_prev"]
+            u_obj = torch.stack([
+                self._ransac_uniforms(self.f_id, k + 1, self.n_hyp_obj)
+                for k in range(MB)])
+            T_is, init_inl, init_n = self._init_model(
+                u_obj, T_models, T_lw, b["pt_obs"], b["pt_depth"],
+                b["pt_cur_uv"], b["pt_cur_d"], b["pt_valid"])
+            res = solve(
+                T_is, T_wl,
+                fs.PointBundle(b["pt_obs"], b["pt_flow0"], b["pt_depth"],
+                               b["pt_valid"] & init_inl),
+                fs.LineBundle(b["ln_obs"], b["ln_flow0"], b["ln_depth"],
+                              b["ln_valid"]),
+                flow_prior_info=cfg.flow_prior_info_obj,
+                line_prior_info=cfg.flow_prior_info_obj,
+                use_lines=buckets["any_lines"] and cfg.use_lines)
+            self.lm_host_syncs += res.host_syncs
+            outs.update(o_pose=res.pose, o_flow=res.flow,
+                        o_line_flow=res.line_flow,
+                        o_point_inlier=res.point_inlier,
+                        o_line_inlier=res.line_inlier, o_init_n=init_n,
+                        o_static_frac=static_frac)
+        return {k: v.cpu().numpy() for k, v in outs.items()}
+
+    # ------------------------------------------------------------------
+    def _update_mask(self):
+        """Mask recovery (Tracking.cc:4730-4810): per last-frame semantic
+        label, sample the current mask at the flow-warped object points; if
+        the majority vote (over >= 100 samples) is background, the segmenter
+        lost the object -- splat the last mask forward along the last flow."""
+        last = self.last
+        if self.last_mask_np is None or self.last_flow_np is None:
+            return
+        h, w = self.mask_np.shape
+        sem = last["obj_sem"]
+        valid = last["obj_valid"]
+        corres = last["obj_corres"]
+        for lab in np.unique(sem[valid & (sem > 0)]):
+            idx = np.nonzero(valid & (sem == lab))[0]
+            u = corres[idx, 0].astype(np.int32)
+            v = corres[idx, 1].astype(np.int32)
+            inb = (u > 0) & (u < w) & (v > 0) & (v < h)
+            if inb.sum() < 100:
+                continue
+            samples = self.mask_np[v[inb], u[inb]]
+            vals, counts = np.unique(samples, return_counts=True)
+            if vals[np.argmax(counts)] != 0:
+                continue
+            # splat: current mask at (pixel + last flow) = label
+            ys, xs = np.nonzero(self.last_mask_np == lab)
+            fx = self.last_flow_np[ys, xs, 0].astype(np.int32)
+            fy = self.last_flow_np[ys, xs, 1].astype(np.int32)
+            nx, ny = xs + fx, ys + fy
+            ok = (nx > 0) & (nx < w) & (ny > 0) & (ny < h)
+            self.mask_np[ny[ok], nx[ok]] = lab
+
+    # ------------------------------------------------------------------
+    def _initialize(self, stat_tmp, line_tmp, obj_tmp,
+                    oline_tmp, pose_gt, gt_objs):
+        """First frame (Tracking.cc:1888-1984): identity pose, stash features
+        + 3D, push frame-0 map entries."""
+        s_uv, s_d, s_f, s_c, s_v = stat_tmp
+        l_uv, l_d, l_f, l_c, l_v = line_tmp
+        o_uv, o_d, o_f, o_c, o_s, o_v = obj_tmp
+        ol_uv, ol_d, ol_f, ol_c, ol_s, ol_v = oline_tmp
+
+        pose = _EYE4
+        stat_3d = _np_world_points(self.K, pose, s_uv, s_d)
+        line_3d = _np_world_lines(self.K, pose, l_uv, l_d)
+        obj_3d = _np_world_points(self.K, pose, o_uv, o_d)
+        oline_3d = _np_world_lines(self.K, pose, ol_uv, ol_d)
+
+        self.last = dict(
+            pose=_EYE4.copy(), pose_gt=pose_gt,
+            stat_uv=np.asarray(s_uv), stat_depth=np.asarray(s_d),
+            stat_flow=np.asarray(s_f), stat_corres=np.asarray(s_c),
+            stat_valid=np.asarray(s_v), stat_3d=np.asarray(stat_3d),
+            line_uv=np.asarray(l_uv), line_depth=np.asarray(l_d),
+            line_flow=np.asarray(l_f), line_corres=np.asarray(l_c),
+            line_valid=np.asarray(l_v), line_3d=np.asarray(line_3d),
+            obj_uv=np.asarray(o_uv), obj_depth=np.asarray(o_d),
+            obj_flow=np.asarray(o_f), obj_corres=np.asarray(o_c),
+            obj_sem=np.asarray(o_s), obj_valid=np.asarray(o_v),
+            obj_3d=np.asarray(obj_3d),
+            obj_label=np.full(self.NO, -2, np.int32),
+            oline_uv=np.asarray(ol_uv), oline_depth=np.asarray(ol_d),
+            oline_flow=np.asarray(ol_f), oline_corres=np.asarray(ol_c),
+            oline_sem=np.asarray(ol_s), oline_valid=np.asarray(ol_v),
+            oline_3d=np.asarray(oline_3d),
+            oline_label=np.full(self.NLO, -2, np.int32),
+            gt_objs=gt_objs,
+        )
+        self.last_meta = {"sem_position": [], "mod_label": [],
+                          "obj_stat": [], "obj_motion": {}}
+
+        # frame-0 map entries (Initialization, Tracking.cc:1921-1954):
+        # features + identity camera poses (GT identity: origin-aligned)
+        m = self.map
+        st = self.last
+        m.stat_uv.append(st["stat_uv"]); m.stat_depth.append(st["stat_depth"])
+        m.stat_3d.append(st["stat_3d"]); m.stat_valid.append(st["stat_valid"])
+        m.stat_asso.append(np.full(self.NS, -1, np.int32))
+        m.line_uv.append(st["line_uv"]); m.line_depth.append(st["line_depth"])
+        m.line_3d.append(st["line_3d"]); m.line_valid.append(st["line_valid"])
+        m.line_asso.append(np.full(self.NLS, -1, np.int32))
+        m.line_plucker.append(_np_plucker(st["line_3d"][:, :3], st["line_3d"][:, 3:]))
+        m.dyn_uv.append(st["obj_uv"]); m.dyn_depth.append(st["obj_depth"])
+        m.dyn_3d.append(st["obj_3d"]); m.dyn_valid.append(st["obj_valid"])
+        m.dyn_asso.append(np.full(self.NO, -1, np.int32))
+        m.dyn_label.append(st["obj_label"])
+        m.dline_uv.append(st["oline_uv"]); m.dline_depth.append(st["oline_depth"])
+        m.dline_3d.append(st["oline_3d"]); m.dline_valid.append(st["oline_valid"])
+        m.dline_asso.append(np.full(self.NLO, -1, np.int32))
+        m.dline_label.append(st["oline_label"])
+        m.dline_plucker.append(_np_plucker(st["oline_3d"][:, :3], st["oline_3d"][:, 3:]))
+        m.camera_poses.append(_EYE4.copy())
+        m.camera_poses_rf.append(_EYE4.copy())
+        m.camera_poses_gt.append(_EYE4.copy())
+
+    # ------------------------------------------------------------------
+    def _group_objects(self, o_uv, o_d, o_sem, sf_valid, ol_uv, ol_sem,
+                       ol_valid):
+        """Mask-only half of DynObjTracking (Tracking.cc:2077-2523): group
+        candidate object points by semantic label, reject
+        boundary-dominated groups, and precompute the far/small flags plus
+        the tentative tracking-label association (last-frame majority
+        semantic label -> last motion model, Tracking.cc:2631-2699).  The
+        pose-dependent scene-flow static test runs on device inside the
+        fused step and is applied in :meth:`_commit_objects`."""
+        cfg = self.cfg
+        h, w = self.mask_np.shape
+        last = self.last
+        cand = sf_valid & (o_sem > 0)
+        uniq = np.unique(o_sem[cand])
+        uniq = uniq[uniq > 0]
+
+        shr_c, shr_r = cfg.boundary_shrink_x, cfg.boundary_shrink_y
+        if cfg.choose_data != KITTI:
+            shr_c, shr_r = 0, 0
+
+        last_sem = last["obj_sem"]
+        groups = []
+        for lab in uniq:
+            pidx = np.nonzero(cand & (o_sem == lab))[0]
+            lidx = np.nonzero(ol_valid & (ol_sem == lab))[0]
+            if len(pidx) == 0:
+                continue
+            # boundary rejection (Tracking.cc:2460-2500)
+            u, v = o_uv[pidx, 0], o_uv[pidx, 1]
+            near = (
+                (v < shr_r) | (v > h - shr_r) | (u < shr_c) | (u > w - shr_c)
+            ).sum()
+            if len(lidx):
+                lu = ol_uv[lidx]
+                near += (
+                    (lu[:, 1] < shr_r) | (lu[:, 1] > h - shr_r)
+                    | (lu[:, 0] < shr_c) | (lu[:, 0] > w - shr_c)
+                    | (lu[:, 3] < shr_r) | (lu[:, 3] > h - shr_r)
+                    | (lu[:, 2] < shr_c) | (lu[:, 2] > w - shr_c)
+                ).sum()
+            if near / max(len(pidx) + len(lidx), 1) > 0.5:
+                continue
+            # far / small flags (Tracking.cc:2575-2590); applied after the
+            # static-test result arrives (static precedes far/small)
+            far_small = (
+                o_d[pidx].mean() > cfg.th_depth_obj
+                or len(pidx) < cfg.min_object_points
+            )
+            # tentative association (committed in _commit_objects; new ids
+            # are allocated only for objects that survive the static test)
+            lb_last = last_sem[pidx]
+            if len(lidx):
+                lb_last = np.concatenate(
+                    [lb_last, last["oline_sem"][lidx]]
+                )
+            vals, counts = np.unique(lb_last, return_counts=True)
+            assoc_sem = int(vals[np.argmax(counts)])
+            assigned = None
+            if self.max_id > 1:
+                for k, sem_pos in enumerate(self.last_meta["sem_position"]):
+                    if (
+                        sem_pos == assoc_sem
+                        and self.last_meta["obj_stat"][k]
+                    ):
+                        assigned = self.last_meta["mod_label"][k]
+                        break
+            H_prev = (
+                self.last_meta["obj_motion"].get(assigned)
+                if assigned is not None else None
+            )
+            groups.append(dict(
+                sem=int(lab), pidx=pidx, lidx=lidx, far_small=far_small,
+                assigned=assigned, H_prev=H_prev,
+            ))
+        return groups[: self.MAXO]
+
+    # ------------------------------------------------------------------
+    def _build_buckets(self, groups, o_uv, o_d, ol_uv, sf_valid):
+        """Pack the object groups into fixed (MB, P)/(MB, L) device buckets
+        (MB = next power of two).  Returns None when there are no groups."""
+        n_obj = len(groups)
+        if n_obj == 0:
+            return None
+        last = self.last
+        P, L = self.P_OBJ, self.L_OBJ
+        # smallest power-of-two bucket (RANSAC draws are seeded by lane
+        # index, so they are identical for any MB)
+        MB = min(1 << max(n_obj - 1, 0).bit_length(), self.MAXO)
+        b = dict(
+            pt_obs=np.zeros((MB, P, 2), np.float32),
+            pt_flow0=np.zeros((MB, P, 2), np.float32),
+            pt_depth=np.ones((MB, P), np.float32),
+            pt_cur_uv=np.zeros((MB, P, 2), np.float32),
+            pt_cur_d=np.zeros((MB, P), np.float32),
+            pt_valid=np.zeros((MB, P), bool),
+            pt_sfvalid=np.zeros((MB, P), bool),
+            ln_obs=np.zeros((MB, L, 4), np.float32),
+            ln_flow0=np.zeros((MB, L, 4), np.float32),
+            ln_depth=np.ones((MB, L, 2), np.float32),
+            ln_valid=np.zeros((MB, L), bool),
+            H_prev=np.tile(_EYE4, (MB, 1, 1)),
+        )
+        o_uv_np = np.asarray(o_uv)
+        o_d_np = np.asarray(o_d)
+        ol_uv_np = np.asarray(ol_uv)
+        for k, g in enumerate(groups):
+            pidx = g["pidx"][:P]
+            lidx = g["lidx"][:L]
+            n, m = len(pidx), len(lidx)
+            # the edge unprojects LAST-frame pixels at last depths
+            b["pt_obs"][k, :n] = last["obj_uv"][pidx]
+            b["pt_depth"][k, :n] = last["obj_depth"][pidx]
+            b["pt_flow0"][k, :n] = o_uv_np[pidx] - last["obj_uv"][pidx]
+            b["pt_cur_uv"][k, :n] = o_uv_np[pidx]
+            b["pt_cur_d"][k, :n] = o_d_np[pidx]
+            b["pt_valid"][k, :n] = last["obj_depth"][pidx] > 0
+            b["pt_sfvalid"][k, :n] = sf_valid[pidx]
+            if m:
+                b["ln_obs"][k, :m] = last["oline_uv"][lidx]
+                b["ln_depth"][k, :m] = last["oline_depth"][lidx]
+                b["ln_flow0"][k, :m] = (
+                    ol_uv_np[lidx] - last["oline_uv"][lidx]
+                )
+                b["ln_valid"][k, :m] = (
+                    last["oline_depth"][lidx].min(axis=1) > 0
+                )
+            if g["H_prev"] is not None:
+                b["H_prev"][k] = g["H_prev"]
+        b["any_lines"] = bool(b["ln_valid"].any())
+        return b
+
+    # ------------------------------------------------------------------
+    def _commit_objects(self, groups, obj_pulled, pose_np, pose_gt,
+                        gt_objs, last):
+        """Apply the static test, commit tracking labels (allocating new
+        ids for unassociated dynamic objects), and build the per-object
+        meta consumed by renewal and the map (Tracking.cc:2528-2736 +
+        :1277-1528)."""
+        cfg = self.cfg
+        obj_label = np.full(self.NO, -1, np.int32)
+        oline_label = np.full(self.NLO, -1, np.int32)
+        obj_meta = []
+        if obj_pulled is None or not groups:
+            return obj_label, oline_label, obj_meta
+        (o_G, o_flow, o_lflow, o_pinl, o_linl, init_n_np,
+         static_frac) = obj_pulled
+
+        inv_pose = np.linalg.inv(pose_np)
+        curr_twc_gt = np.linalg.inv(pose_gt)
+        last_twc_gt = np.linalg.inv(last["pose_gt"])
+        P, L = self.P_OBJ, self.L_OBJ
+
+        for k, g in enumerate(groups):
+            pidx, lidx = g["pidx"], g["lidx"]
+            # static test (Tracking.cc:2528-2560): frac of x-z scene flow
+            # below SFMgThres -> background label 0
+            if float(static_frac[k]) > cfg.sf_ds_thres:
+                obj_label[pidx] = 0
+                oline_label[lidx] = 0
+                continue
+            # far / small rejection (Tracking.cc:2575-2590): label stays -1
+            if g["far_small"]:
+                continue
+            assigned = g["assigned"]
+            if assigned is None:
+                assigned = self.max_id
+                self.max_id += 1
+            obj_label[pidx] = assigned
+            oline_label[lidx] = assigned
+
+            pidx_c, lidx_c = pidx[:P], lidx[:L]
+            n = len(pidx_c)
+            sem_lab = g["sem"]
+            L_w_p = self._gt_obj_pose(last.get("gt_objs", []), sem_lab,
+                                      last_twc_gt)
+            L_w_c = self._gt_obj_pose(gt_objs, sem_lab, curr_twc_gt)
+            stat = True
+            H_gt_body = _EYE4.copy()
+            pose_pre = _EYE4.copy()
+            H_gt_world = _EYE4.copy()
+            if L_w_p is None or L_w_c is None:
+                stat = False           # Tracking.cc:1317-1334
+            else:
+                H_gt_body = (np.linalg.inv(L_w_p) @ L_w_c).astype(np.float32)
+                H_gt_world = (L_w_c @ np.linalg.inv(L_w_p)).astype(np.float32)
+                pose_pre = L_w_p
+            if int(init_n_np[k]) < cfg.min_pnp_inliers_obj:
+                stat = False           # init failure, Tracking.cc:1387-1399
+            H = (inv_pose @ o_G[k]).astype(np.float32)
+            if not stat:
+                H = _EYE4.copy()
+            centre = (
+                _np_world_points(
+                    self.K, last["pose"], last["obj_uv"][pidx_c],
+                    last["obj_depth"][pidx_c],
+                ).mean(axis=0)
+                if n
+                else np.zeros(3, np.float32)
+            )
+            # GT speed (Tracking.cc:1404-1409): v = t - (I-R) c, km/h x36
+            sp_gt_v = H_gt_world[:3, 3] - (
+                np.eye(3) - H_gt_world[:3, :3]
+            ) @ centre[:3]
+            speed_gt = float(np.linalg.norm(sp_gt_v)) * 36.0
+            obj_meta.append(dict(
+                label=assigned, sem=sem_lab, stat=stat, H=H,
+                speed_gt=speed_gt, H_gt_body=H_gt_body, pose_pre=pose_pre,
+                centre=centre, pt_idx=pidx_c, ln_idx=lidx_c,
+                pt_inlier=o_pinl[k], ln_inlier=o_linl[k],
+                flow=o_flow[k], ln_flow=o_lflow[k],
+            ))
+        return obj_label, oline_label, obj_meta
+
+    def _gt_obj_pose(self, gt_rows, sem_label, twc_gt):
+        """Find the GT pose row matching a semantic label; KITTI rows are in
+        camera coords and lifted to world by Twc_gt (Tracking.cc:1289-1311)."""
+        for row in gt_rows:
+            if int(row[1]) == sem_label:
+                if self.cfg.choose_data == OMD:
+                    return obj_pose_parsing_ox(row, self.origin_inv)
+                L = obj_pose_parsing_kt(row)
+                return (twc_gt @ L).astype(np.float32)
+        return None
+
+    # ------------------------------------------------------------------
+    def _renew_frame_info(self, depth_np, mask_np,
+                          pose_np, flow_np, stat_tmp, line_tmp,
+                          obj_tmp, oline_tmp,
+                          s_uv, s_d, stat_ok, l_uv, l_d, line_ok,
+                          o_uv, o_d, o_sem, obj_label, obj_ok,
+                          ol_uv, ol_d, ol_sem, ol_valid, oline_ok,
+                          pose_gt, gt_objs):
+        """RenewFrameInfo (Tracking.cc:3959-4730): keep inliers, top-up from
+        this frame's detections with dedup, recompute depth/3D, rebuild
+        association ids.  ``depth_np``/``mask_np`` are the frame's images."""
+        cfg = self.cfg
+        h, w = mask_np.shape
+
+        def filt_point(uv):
+            x = uv[:, 0].astype(np.int32)
+            y = uv[:, 1].astype(np.int32)
+            inb = (x > 0) & (x < w - 1) & (y > 0) & (y < h - 1)
+            xc, yc = np.clip(x, 0, w - 1), np.clip(y, 0, h - 1)
+            m = mask_np[yc, xc]
+            d = depth_np[yc, xc]
+            f = flow_np[yc, xc]
+            corr = uv + f
+            ok = (
+                inb & (m == 0) & (d > 0) & (d <= 40.0)
+                & (f[:, 0] != 0) & (f[:, 1] != 0)
+                & (corr[:, 0] < w) & (corr[:, 0] > 0)
+                & (corr[:, 1] < h) & (corr[:, 1] > 0)
+            )
+            return ok, d, f, corr
+
+        # ---- static points: keep inliers ----
+        keep_ok, kd, kf, kc = filt_point(s_uv)
+        keep = stat_ok & keep_ok
+        kept_idx = np.nonzero(keep)[0][: self.NS]
+
+        new_uv = np.zeros((self.NS, 2), np.float32)
+        new_d = np.zeros(self.NS, np.float32)
+        new_f = np.zeros((self.NS, 2), np.float32)
+        new_c = np.zeros((self.NS, 2), np.float32)
+        new_asso = np.full(self.NS, -1, np.int32)
+        nk = len(kept_idx)
+        new_uv[:nk] = s_uv[kept_idx]
+        new_d[:nk] = kd[kept_idx]
+        new_f[:nk] = kf[kept_idx]
+        new_c[:nk] = kc[kept_idx]
+        new_asso[:nk] = kept_idx
+
+        # ---- top-up from detections (strided order + 1px dedup against the
+        # kept set, Tracking.cc:4091-4140) ----
+        cs_uv, cs_d, cs_f, cs_c, cs_v = [np.asarray(a) for a in stat_tmp]
+        if nk < self.NS:
+            cand_ok, cd, cf, cc = filt_point(cs_uv)
+            cand_ok &= cs_v
+            if nk:
+                cand_ok &= ~self._near_occupied(new_uv[:nk], cs_uv, h, w)
+            order = self._strided_order(len(cs_uv), 10)
+            pick = order[cand_ok[order]][: self.NS - nk]
+            np_new = len(pick)
+            new_uv[nk:nk + np_new] = cs_uv[pick]
+            new_d[nk:nk + np_new] = cd[pick]
+            new_f[nk:nk + np_new] = cf[pick]
+            new_c[nk:nk + np_new] = cc[pick]
+            nk += np_new
+        stat_valid = np.arange(self.NS) < nk
+
+        # ---- static lines: keep + top-up (Tracking.cc:4002-4261) ----
+        new_l = np.zeros((self.NLS, 4), np.float32)
+        new_ld = np.zeros((self.NLS, 2), np.float32)
+        new_lf = np.zeros((self.NLS, 4), np.float32)
+        new_lc = np.zeros((self.NLS, 4), np.float32)
+        new_lasso = np.full(self.NLS, -1, np.int32)
+
+        def filt_line(uv4):
+            xs = uv4[:, 0].astype(np.int32); ys = uv4[:, 1].astype(np.int32)
+            xe = uv4[:, 2].astype(np.int32); ye = uv4[:, 3].astype(np.int32)
+            inb = (
+                (xs > 0) & (xs < w - 1) & (ys > 0) & (ys < h - 1)
+                & (xe > 0) & (xe < w - 1) & (ye > 0) & (ye < h - 1)
+            )
+            xsc, ysc = np.clip(xs, 0, w - 1), np.clip(ys, 0, h - 1)
+            xec, yec = np.clip(xe, 0, w - 1), np.clip(ye, 0, h - 1)
+            ms = mask_np[ysc, xsc]; me = mask_np[yec, xec]
+            ds = depth_np[ysc, xsc]; de = depth_np[yec, xec]
+            xm = ((xs + xe) // 2).clip(0, w - 1)
+            ym = ((ys + ye) // 2).clip(0, h - 1)
+            dm = depth_np[ym, xm]
+            ln = np.sqrt((xs - xe) ** 2 + (ys - ye) ** 2).astype(np.float32)
+            disc = np.abs(dm - 0.5 * (ds + de)) <= 10.0 * ln / 1000.0
+            fs_ = flow_np[ysc, xsc]; fe_ = flow_np[yec, xec]
+            f4 = np.concatenate([fs_, fe_], axis=1)
+            corr = uv4 + f4
+            degen = (np.abs(uv4[:, 0] - uv4[:, 2]) < 1e-6) & (
+                np.abs(uv4[:, 1] - uv4[:, 3]) < 1e-6
+            )
+            ok = (
+                inb & ~degen & (ms == 0) & (me == 0)
+                & (ds > 0) & (ds <= 40.0) & (de > 0) & (de <= 40.0)
+                & disc
+                & (corr[:, 0] > 0) & (corr[:, 0] < w)
+                & (corr[:, 1] > 0) & (corr[:, 1] < h)
+                & (corr[:, 2] > 0) & (corr[:, 2] < w)
+                & (corr[:, 3] > 0) & (corr[:, 3] < h)
+            )
+            d2 = np.stack([ds, de], axis=1)
+            return ok, d2, f4, corr
+
+        lk_ok, lkd, lkf, lkc = filt_line(l_uv)
+        lkeep = line_ok & lk_ok
+        lkept = np.nonzero(lkeep)[0][: self.NLS]
+        nlk = len(lkept)
+        new_l[:nlk] = l_uv[lkept]
+        new_ld[:nlk] = lkd[lkept]
+        new_lf[:nlk] = lkf[lkept]
+        new_lc[:nlk] = lkc[lkept]
+        new_lasso[:nlk] = lkept
+
+        cl_uv, cl_d, cl_f, cl_c, cl_v = [np.asarray(a) for a in line_tmp]
+        if nlk < self.NLS and cl_v.any():
+            cok, cld, clf, clc = filt_line(cl_uv)
+            cok &= cl_v
+            if nlk:
+                cok &= ~self._line_dup(cl_uv, new_l[:nlk])
+            pick = np.nonzero(cok)[0][: self.NLS - nlk]
+            nn = len(pick)
+            new_l[nlk:nlk + nn] = cl_uv[pick]
+            new_ld[nlk:nlk + nn] = cld[pick]
+            new_lf[nlk:nlk + nn] = clf[pick]
+            new_lc[nlk:nlk + nn] = clc[pick]
+            nlk += nn
+        line_valid = np.arange(self.NLS) < nlk
+
+        # ---- objects: keep inliers per object, top-up to cap per object,
+        # add new-label candidates (Tracking.cc:4381-4692) ----
+        co_uv, co_d, co_f, co_c, co_s, co_v = [np.asarray(a) for a in obj_tmp]
+        no_uv = np.zeros((self.NO, 2), np.float32)
+        no_d = np.zeros(self.NO, np.float32)
+        no_f = np.zeros((self.NO, 2), np.float32)
+        no_c = np.zeros((self.NO, 2), np.float32)
+        no_sem = np.zeros(self.NO, np.int32)
+        no_label = np.full(self.NO, -2, np.int32)
+        no_asso = np.full(self.NO, -1, np.int32)
+        cursor = 0
+
+        def obj_filt(uv):
+            x = uv[:, 0].astype(np.int32); y = uv[:, 1].astype(np.int32)
+            inb = (x > 0) & (x < w - 1) & (y > 0) & (y < h - 1)
+            xc, yc = np.clip(x, 0, w - 1), np.clip(y, 0, h - 1)
+            m = mask_np[yc, xc]
+            d = depth_np[yc, xc]
+            f = flow_np[yc, xc]
+            corr = uv + f
+            ok = (
+                inb & (m != 0) & (d > 0) & (d < cfg.th_depth_obj)
+                & (corr[:, 0] < w) & (corr[:, 0] > 0)
+                & (corr[:, 1] < h) & (corr[:, 1] > 0)
+            )
+            return ok, m, d, f, corr
+
+        ok_o, m_o, d_o, f_o, c_o = obj_filt(o_uv)
+        tracked_labels = [int(x) for x in np.unique(obj_label) if x > 0]
+        live_sems = set()
+        label_sem = {}
+        for lab in tracked_labels:
+            idx = np.nonzero((obj_label == lab) & obj_ok & ok_o)[0]
+            sem_now = (
+                int(np.bincount(m_o[idx]).argmax()) if len(idx) else 0
+            )
+            live_sems.add(sem_now)
+            label_sem[lab] = sem_now
+            take = idx[: self.P_OBJ]
+            n = len(take)
+            if cursor + n > self.NO:
+                n = self.NO - cursor
+                take = take[:n]
+            no_uv[cursor:cursor + n] = o_uv[take]
+            no_d[cursor:cursor + n] = d_o[take]
+            no_f[cursor:cursor + n] = f_o[take]
+            no_c[cursor:cursor + n] = c_o[take]
+            no_sem[cursor:cursor + n] = m_o[take]
+            no_label[cursor:cursor + n] = lab
+            no_asso[cursor:cursor + n] = take
+            cursor += n
+            # top-up from this frame's stride-4 candidates on the same mask
+            # label (Tracking.cc:4468-4562)
+            if n < self.P_OBJ and co_v.any():
+                cok, cm, cdd, cff, ccc = obj_filt(co_uv)
+                cok &= co_v & (cm == sem_now) & (sem_now != 0)
+                if n:
+                    cok &= ~self._near_occupied(o_uv[take], co_uv, h, w)
+                pick = np.nonzero(cok)[0][: self.P_OBJ - n]
+                nn = min(len(pick), self.NO - cursor)
+                pick = pick[:nn]
+                no_uv[cursor:cursor + nn] = co_uv[pick]
+                no_d[cursor:cursor + nn] = cdd[pick]
+                no_f[cursor:cursor + nn] = cff[pick]
+                no_c[cursor:cursor + nn] = ccc[pick]
+                no_sem[cursor:cursor + nn] = cm[pick]
+                no_label[cursor:cursor + nn] = lab
+                cursor += nn
+
+        # new semantic labels not currently tracked enter as fresh
+        # candidates (next frame's DynObjTracking will classify them,
+        # Tracking.cc:4627-4692)
+        if co_v.any() and cursor < self.NO:
+            cok, cm, cdd, cff, ccc = obj_filt(co_uv)
+            cok &= co_v
+            for sem_new in [int(x) for x in np.unique(cm[cok]) if x != 0]:
+                if sem_new in live_sems:
+                    continue
+                pick = np.nonzero(cok & (cm == sem_new))[0][: self.P_OBJ]
+                nn = min(len(pick), self.NO - cursor)
+                pick = pick[:nn]
+                no_uv[cursor:cursor + nn] = co_uv[pick]
+                no_d[cursor:cursor + nn] = cdd[pick]
+                no_f[cursor:cursor + nn] = cff[pick]
+                no_c[cursor:cursor + nn] = ccc[pick]
+                no_sem[cursor:cursor + nn] = cm[pick]
+                no_label[cursor:cursor + nn] = -2
+                cursor += nn
+        obj_valid = np.arange(self.NO) < cursor
+
+        # ---- object lines: keep + top-up per object ----
+        nol_uv = np.zeros((self.NLO, 4), np.float32)
+        nol_d = np.zeros((self.NLO, 2), np.float32)
+        nol_f = np.zeros((self.NLO, 4), np.float32)
+        nol_c = np.zeros((self.NLO, 4), np.float32)
+        nol_sem = np.zeros(self.NLO, np.int32)
+        nol_label = np.full(self.NLO, -2, np.int32)
+        nol_asso = np.full(self.NLO, -1, np.int32)
+        lcursor = 0
+        col_uv, col_d, col_f, col_c, col_s, col_v = [
+            np.asarray(a) for a in oline_tmp
+        ]
+        oline_label_arr = self._oline_label
+        def _obj_line_dup(cand_uv4, kept_uv4):
+            """Reference object-line dedup gate (Tracking.cc:4584-4602):
+            angle difference < 1 rad AND midpoint distance < 1 px."""
+            if not len(kept_uv4):
+                return np.zeros(len(cand_uv4), bool)
+            a1 = np.arctan2(cand_uv4[:, 3] - cand_uv4[:, 1],
+                            cand_uv4[:, 2] - cand_uv4[:, 0])
+            a2 = np.arctan2(kept_uv4[:, 3] - kept_uv4[:, 1],
+                            kept_uv4[:, 2] - kept_uv4[:, 0])
+            ad = np.abs(a1[:, None] - a2[None, :])
+            ad = np.where(ad > np.pi, 2 * np.pi - ad, ad)
+            m1 = 0.5 * (cand_uv4[:, :2] + cand_uv4[:, 2:])
+            m2 = 0.5 * (kept_uv4[:, :2] + kept_uv4[:, 2:])
+            md = np.linalg.norm(m1[:, None] - m2[None], axis=2)
+            return ((ad < 1.0) & (md < 1.0)).any(axis=1)
+
+        col_ok_all, _, _, _ = (
+            filt_line(col_uv) if col_v.any()
+            else (np.zeros(len(col_uv), bool), None, None, None)
+        )
+        for lab in tracked_labels:
+            lidx = np.nonzero(
+                (oline_label_arr == lab) & oline_ok & ol_valid
+            )[0][: self.L_OBJ]
+            n = min(len(lidx), self.NLO - lcursor)
+            lidx = lidx[:n]
+            kept_start = lcursor
+            nol_uv[lcursor:lcursor + n] = ol_uv[lidx]
+            nol_d[lcursor:lcursor + n] = ol_d[lidx]
+            nol_sem[lcursor:lcursor + n] = ol_sem[lidx]
+            nol_label[lcursor:lcursor + n] = lab
+            nol_asso[lcursor:lcursor + n] = lidx
+            lcursor += n
+            # top-up to the per-object cap from this frame's detections on
+            # the SAME semantic label, under this object's tracking label
+            # (Tracking.cc:4562-4608, max_num_obj_line = 100/object)
+            sem_now = label_sem.get(lab, 0)
+            if n < self.L_OBJ and sem_now != 0 and col_v.any():
+                cok = col_v & col_ok_all & (col_s == sem_now)
+                cok &= ~_obj_line_dup(col_uv, nol_uv[kept_start:lcursor])
+                pick = np.nonzero(cok)[0][: self.L_OBJ - n]
+                nn = min(len(pick), self.NLO - lcursor)
+                pick = pick[:nn]
+                nol_uv[lcursor:lcursor + nn] = col_uv[pick]
+                nol_d[lcursor:lcursor + nn] = col_d[pick]
+                nol_f[lcursor:lcursor + nn] = col_f[pick]
+                nol_c[lcursor:lcursor + nn] = col_c[pick]
+                nol_sem[lcursor:lcursor + nn] = col_s[pick]
+                nol_label[lcursor:lcursor + nn] = lab
+                lcursor += nn
+        # lines of NEW semantic labels enter with label -2 alongside the
+        # new-object points (Tracking.cc:4668-4684)
+        if col_v.any() and lcursor < self.NLO:
+            for sem_new in [int(x) for x in np.unique(col_s[col_v])
+                            if x != 0]:
+                if sem_new in live_sems:
+                    continue
+                pick = np.nonzero(col_v & (col_s == sem_new))[0]
+                nn = min(len(pick), self.NLO - lcursor)
+                pick = pick[:nn]
+                nol_uv[lcursor:lcursor + nn] = col_uv[pick]
+                nol_d[lcursor:lcursor + nn] = col_d[pick]
+                nol_f[lcursor:lcursor + nn] = col_f[pick]
+                nol_c[lcursor:lcursor + nn] = col_c[pick]
+                nol_sem[lcursor:lcursor + nn] = col_s[pick]
+                nol_label[lcursor:lcursor + nn] = -2
+                lcursor += nn
+        oline_valid = np.arange(self.NLO) < lcursor
+        # recompute flows/corres for kept object lines at their new positions
+        lok, _, _, _ = filt_line(nol_uv)
+        lf_s = flow_np[
+            np.clip(nol_uv[:, 1].astype(np.int32), 0, h - 1),
+            np.clip(nol_uv[:, 0].astype(np.int32), 0, w - 1),
+        ]
+        lf_e = flow_np[
+            np.clip(nol_uv[:, 3].astype(np.int32), 0, h - 1),
+            np.clip(nol_uv[:, 2].astype(np.int32), 0, w - 1),
+        ]
+        nol_f = np.concatenate([lf_s, lf_e], axis=1).astype(np.float32)
+        nol_c = nol_uv + nol_f
+
+        # world-3D recompute happens in _push_map (nothing on the joint
+        # tracking path reads it)
+        return dict(
+            pose=pose_np, pose_gt=pose_gt,
+            stat_uv=new_uv, stat_depth=new_d, stat_flow=new_f,
+            stat_corres=new_c, stat_valid=stat_valid,
+            stat_asso=new_asso,
+            line_uv=new_l, line_depth=new_ld, line_flow=new_lf,
+            line_corres=new_lc, line_valid=line_valid,
+            line_asso=new_lasso,
+            obj_uv=no_uv, obj_depth=no_d, obj_flow=no_f, obj_corres=no_c,
+            obj_sem=no_sem, obj_valid=obj_valid,
+            obj_label=no_label, obj_asso=no_asso,
+            oline_uv=nol_uv, oline_depth=nol_d, oline_flow=nol_f,
+            oline_corres=nol_c, oline_sem=nol_sem, oline_valid=oline_valid,
+            oline_label=nol_label, oline_asso=nol_asso,
+            gt_objs=gt_objs,
+        )
+
+    @staticmethod
+    @functools.lru_cache(maxsize=8)
+    def _strided_order_cached(n: int, step: int):
+        order = []
+        for start in range(step):
+            order.extend(range(start, n, step))
+        return np.asarray(order, np.int64)
+
+    def _strided_order(self, n, step):
+        return self._strided_order_cached(n, step)
+
+    @staticmethod
+    def _near_occupied(kept_uv, cand_uv, h, w):
+        """O(N) 1px-radius dedup (replaces the reference's O(N^2) scan,
+        Tracking.cc:4105-4123): occupancy bitmap of kept positions dilated
+        by one pixel, candidates tested by lookup."""
+        occ = np.zeros((h + 2, w + 2), bool)
+        kx = np.clip(kept_uv[:, 0].astype(np.int32), 0, w - 1)
+        ky = np.clip(kept_uv[:, 1].astype(np.int32), 0, h - 1)
+        for dy in (0, 1, 2):
+            for dx in (0, 1, 2):
+                occ[ky + dy, kx + dx] = True
+        cx = np.clip(cand_uv[:, 0].astype(np.int32), 0, w - 1)
+        cy = np.clip(cand_uv[:, 1].astype(np.int32), 0, h - 1)
+        return occ[cy + 1, cx + 1]
+
+    @staticmethod
+    def _line_dup(cand_uv4, kept_uv4):
+        """Reference line dedup (Tracking.cc:4174-4203 / Frame.cc:1582):
+        near-parallel (angle < pi/30) and midpoint distance < max(len)/2."""
+        c_dir = cand_uv4[:, 2:] - cand_uv4[:, :2]
+        k_dir = kept_uv4[:, 2:] - kept_uv4[:, :2]
+        c_mid = 0.5 * (cand_uv4[:, 2:] + cand_uv4[:, :2])
+        k_mid = 0.5 * (kept_uv4[:, 2:] + kept_uv4[:, :2])
+        c_len = np.linalg.norm(c_dir, axis=1) + 1e-9
+        k_len = np.linalg.norm(k_dir, axis=1) + 1e-9
+        cosang = (
+            c_dir @ k_dir.T / (c_len[:, None] * k_len[None, :])
+        )
+        # |a-b|^2 = |a|^2 + |b|^2 - 2 a.b  (no (C,K,2) intermediate)
+        middist2 = (
+            np.sum(c_mid * c_mid, 1)[:, None]
+            + np.sum(k_mid * k_mid, 1)[None, :]
+            - 2.0 * (c_mid @ k_mid.T)
+        )
+        r = 0.5 * np.maximum(c_len[:, None], k_len[None, :])
+        dup = (cosang > np.cos(np.pi / 30)) & (middist2 < r * r)
+        return dup.any(axis=1)
+
+    # ------------------------------------------------------------------
+    def _push_map(self, st, pose_np, pose_gt, prev_pose_gt, velocity,
+                  obj_meta, timing):
+        """Map appends (Tracking.cc:1578-1786); only the map mutates."""
+        m = self.map
+        if "stat_3d" not in st:
+            st["stat_3d"] = _np_world_points(
+                self.K, pose_np, st["stat_uv"], st["stat_depth"]
+            )
+            st["line_3d"] = _np_world_lines(
+                self.K, pose_np, st["line_uv"], st["line_depth"]
+            )
+            st["obj_3d"] = _np_world_points(
+                self.K, pose_np, st["obj_uv"], st["obj_depth"]
+            )
+            st["oline_3d"] = _np_world_lines(
+                self.K, pose_np, st["oline_uv"], st["oline_depth"]
+            )
+        m.stat_uv.append(st["stat_uv"]); m.stat_depth.append(st["stat_depth"])
+        m.stat_3d.append(st["stat_3d"]); m.stat_valid.append(st["stat_valid"])
+        m.stat_asso.append(st["stat_asso"])
+        m.line_uv.append(st["line_uv"]); m.line_depth.append(st["line_depth"])
+        m.line_3d.append(st["line_3d"]); m.line_valid.append(st["line_valid"])
+        m.line_asso.append(st["line_asso"])
+        m.line_plucker.append(_np_plucker(st["line_3d"][:, :3], st["line_3d"][:, 3:]))
+        m.dyn_uv.append(st["obj_uv"]); m.dyn_depth.append(st["obj_depth"])
+        m.dyn_3d.append(st["obj_3d"]); m.dyn_valid.append(st["obj_valid"])
+        m.dyn_asso.append(st["obj_asso"]); m.dyn_label.append(st["obj_label"])
+        m.dline_uv.append(st["oline_uv"]); m.dline_depth.append(st["oline_depth"])
+        m.dline_3d.append(st["oline_3d"]); m.dline_valid.append(st["oline_valid"])
+        m.dline_asso.append(st["oline_asso"]); m.dline_label.append(st["oline_label"])
+        m.dline_plucker.append(_np_plucker(st["oline_3d"][:, :3], st["oline_3d"][:, 3:]))
+
+        m.camera_poses.append(np.linalg.inv(pose_np).astype(np.float32))
+        m.camera_poses_rf.append(np.linalg.inv(pose_np).astype(np.float32))
+        m.camera_poses_gt.append(np.linalg.inv(pose_gt).astype(np.float32))
+
+        cam_motion = np.linalg.inv(velocity).astype(np.float32)
+        motions = [cam_motion]
+        pose_pres = [cam_motion]
+        labels = [0]
+        sems = [0]
+        stats = [True]
+        centres = [np.zeros(3, np.float32)]
+        motions_gt = [
+            (prev_pose_gt @ np.linalg.inv(pose_gt)).astype(np.float32)
+        ]
+        speeds = [1.0]
+        for om in obj_meta:
+            if not om["stat"]:
+                continue
+            motions.append(om["H"])
+            pose_pres.append(om["pose_pre"])
+            labels.append(om["label"])
+            sems.append(om["sem"])
+            stats.append(True)
+            centres.append(om["centre"])
+            motions_gt.append(om["H_gt_body"])
+            speeds.append(om["speed_gt"])
+        m.rigid_motions.append(motions)
+        m.rigid_motions_rf.append([x.copy() for x in motions])
+        m.rigid_motions_gt.append(motions_gt)
+        m.obj_pose_pre.append(pose_pres)
+        m.rigid_centres.append(centres)
+        m.rm_labels.append(labels)
+        m.sm_labels.append(sems)
+        m.obj_stat.append(stats)
+        m.speeds_gt.append(speeds)
+        m.frame_times.append(timing.copy())

@@ -1,0 +1,332 @@
+"""Per-frame joint flow+pose / flow+object-motion solver as batched LM.
+
+Counterpart of ``sdpl_slam_tpu.solvers.frame_solvers.solve_flow_pose``
+(reference Optimizer.cc:6409 ``PoseOptimizationFlow2CamWithLines`` and
+:7603 ``PoseOptimizationFlow2withLines``): one SE(3) vertex plus one
+marginalised 2-dof flow per point and 4-dof flow per line.  Every flow
+touches only the pose, so each feature's block is eliminated in closed
+form (2x2 points, 4x4 lines) and reduced into one damped 6x6 system.
+
+Edge semantics are the JAX package's, quirks included: the flow-line
+edge's second residual component is identically zero in the error while
+both Jacobian rows contribute curvature; info 0.1 / prior 0.3 (camera) or
+0.5 (object); Huber sqrt(rp_thres) for points and sqrt(W*7.815) for lines
+with W = 2^-(n_points // 100); post-solve chi2 gating.
+
+Batching: the JAX solver is single-problem and ``vmap``-ed over objects,
+with ``lax.while_loop`` stopping each lane on its own condition.  Here the
+lanes are a leading batch dim and the loop freezes every finished lane
+(its state is kept with ``torch.where``), so each lane follows exactly the
+iterations its JAX counterpart runs.  The loop exits when no lane is
+active; that test costs one host sync per iteration, counted in
+``FlowPoseResult.host_syncs``.
+
+The flow Jacobian of the line residual (``jax.jacfwd`` in JAX) is written
+in closed form: with c = p_h x q_h, n = sqrt(c.c + eps), l = c / n and
+e_k = l . h_k, de_k/dc = (h_k - l e_k) / n, and dc/dP, dc/dQ are cross
+products with q_h and p_h.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..ops import geometry, lie
+from ..ops.geometry import Intrinsics
+
+
+class PointBundle(NamedTuple):
+    """Fixed-capacity tracked points for one solve (leading lane dims
+    allowed): obs (..., N, 2) last-frame pixels, flow0 (..., N, 2) measured
+    flow (the prior), depth (..., N) last-frame depth, valid (..., N)."""
+
+    obs: torch.Tensor
+    flow0: torch.Tensor
+    depth: torch.Tensor
+    valid: torch.Tensor
+
+
+class LineBundle(NamedTuple):
+    """Fixed-capacity tracked segments: obs (..., M, 4) last-frame
+    endpoints (sx, sy, ex, ey), flow0 (..., M, 4), depth (..., M, 2),
+    valid (..., M)."""
+
+    obs: torch.Tensor
+    flow0: torch.Tensor
+    depth: torch.Tensor
+    valid: torch.Tensor
+
+
+class FlowPoseResult(NamedTuple):
+    pose: torch.Tensor           # (..., 4, 4) optimised T (camera T_cw or object G)
+    flow: torch.Tensor           # (..., N, 2) optimised point flows
+    line_flow: torch.Tensor      # (..., M, 4) optimised line endpoint flows
+    point_inlier: torch.Tensor   # (..., N) bool
+    line_inlier: torch.Tensor    # (..., M) bool
+    n_iters: torch.Tensor        # (...,) LM iterations executed per lane
+    final_cost: torch.Tensor     # (...,) robustified total chi2
+    host_syncs: int              # loop-exit tests read on the host
+
+
+def _huber_weight(chi2, delta):
+    """g2o RobustKernelHuber rho'(chi2): 1 inside, delta/sqrt(chi2) outside."""
+    safe = torch.clamp(chi2, min=1e-20)
+    return torch.where(chi2 <= delta * delta, torch.ones_like(chi2),
+                       delta / torch.sqrt(safe))
+
+
+def _huber_rho(chi2, delta):
+    """g2o RobustKernelHuber rho(chi2)."""
+    safe = torch.clamp(chi2, min=1e-20)
+    return torch.where(chi2 <= delta * delta, chi2,
+                       2.0 * delta * torch.sqrt(safe) - delta * delta)
+
+
+def _point_proj_jacobian(xyz: torch.Tensor, fx: float, fy: float) -> torch.Tensor:
+    """d[(obs+f) - pi(T X)]/d(delta_xi) at 0, [omega, v] order
+    (EdgeSE3ProjectFlow2::linearizeOplus).  (..., 3) -> (..., 2, 6)."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
+    z2 = z * z
+    zero = torch.zeros_like(x)
+    row_u = torch.stack([x * y / z2 * fx, -(1.0 + x * x / z2) * fx, y / z * fx,
+                         -1.0 / z * fx, zero, x / z2 * fx], -1)
+    row_v = torch.stack([(1.0 + y * y / z2) * fy, -x * y / z2 * fy, -x / z * fy,
+                         zero, -1.0 / z * fy, y / z2 * fy], -1)
+    return torch.stack([row_u, row_v], -2)
+
+
+def _homog(p: torch.Tensor) -> torch.Tensor:
+    return torch.cat([p, torch.ones_like(p[..., :1])], -1)
+
+
+def line_flow_jacobian(g, obs4, ps, pe, eps: float = 1e-12):
+    """d[l(P, Q) . (ps, pe)_h]/d g, P = obs[:2] + g[:2], Q = obs[2:] + g[2:]
+    -- ``jax.jacfwd(_line_flow_part)`` in closed form.  (..., 4) flows and
+    (..., 2) projections -> (..., 2, 4)."""
+    ph = _homog(obs4[..., :2] + g[..., :2])
+    qh = _homog(obs4[..., 2:] + g[..., 2:])
+    c = torch.linalg.cross(ph, qh)
+    n = torch.sqrt(torch.sum(c * c, -1, keepdim=True) + eps)
+    l = c / n
+    rows = []
+    for p in (ps, pe):
+        h = _homog(p)
+        v = (h - l * torch.sum(l * h, -1, keepdim=True)) / n
+        dP = torch.linalg.cross(qh, v)[..., :2]
+        dQ = torch.linalg.cross(v, ph)[..., :2]
+        rows.append(torch.cat([dP, dQ], -1))
+    return torch.stack(rows, -2)
+
+
+def solve_flow_pose(
+    T_init: torch.Tensor,
+    T_wl: torch.Tensor,
+    points: PointBundle,
+    lines: LineBundle,
+    K: Intrinsics,
+    rp_thres: float = 0.04,
+    proj_info: float = 0.1,
+    flow_prior_info: float = 0.5,
+    line_proj_info: float = 0.1,
+    line_prior_info: float = 0.5,
+    line_weight_thr: int = 100,
+    max_iterations: int = 100,
+    use_lines: bool = True,
+    rel_tol: float = 1e-7,
+) -> FlowPoseResult:
+    """Joint flow+pose LM with closed-form Schur elimination of the flows,
+    over B independent lanes.
+
+    ``T_init`` (B, 4, 4) or (4, 4): initial T_cw (camera) or motion model
+    G (object); ``T_wl`` (4, 4) or (B, 4, 4): inverse of the last camera
+    pose; bundles with the matching leading lane dim.  ``use_lines`` is a
+    Python bool: False drops the line terms entirely (their values would
+    all be exact zeros).  Unbatched inputs give unbatched results.
+    """
+    if T_init.dim() == 2:
+        r = solve_flow_pose(
+            T_init[None], T_wl, PointBundle(*(a[None] for a in points)),
+            LineBundle(*(a[None] for a in lines)), K, rp_thres, proj_info,
+            flow_prior_info, line_proj_info, line_prior_info,
+            line_weight_thr, max_iterations, use_lines, rel_tol)
+        return FlowPoseResult(*(a[0] for a in r[:7]), r.host_syncs)
+
+    dtype = points.obs.dtype
+    dev = points.obs.device
+    eye4 = torch.eye(4, dtype=dtype, device=dev)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+    fx, fy = K.fx, K.fy
+
+    pvalid = points.valid.to(dtype)
+    lvalid = lines.valid.to(dtype) * (1.0 if use_lines else 0.0)
+    lmask = lines.valid[..., None, None]
+
+    # constant unprojections through the last pose
+    Xw = lie.transform_point(
+        T_wl, geometry.backproject(K, points.obs, points.depth))
+    Xw_s = lie.transform_point(
+        T_wl, geometry.backproject(K, lines.obs[..., :2], lines.depth[..., 0]))
+    Xw_e = lie.transform_point(
+        T_wl, geometry.backproject(K, lines.obs[..., 2:], lines.depth[..., 1]))
+
+    delta_mono = float(np.sqrt(np.float32(rp_thres)))
+    # W = 2^-(n_initial_points // thr), integer division (Optimizer.cc:6540)
+    n_init_pts = points.valid.sum(-1, dtype=torch.int32)
+    weight0 = torch.pow(2.0, -(n_init_pts // line_weight_thr).to(dtype))
+    delta_line = torch.sqrt(weight0 * 7.815)[:, None]          # (B, 1)
+
+    def line_parts(T, g):
+        xyz_s = lie.transform_point(T, Xw_s)
+        xyz_e = lie.transform_point(T, Xw_e)
+        ps = geometry.project(K, xyz_s)
+        pe = geometry.project(K, xyz_e)
+        l = geometry.infinite_line_image(lines.obs[..., :2] + g[..., :2],
+                                         lines.obs[..., 2:] + g[..., 2:])
+        e0 = geometry.point_to_image_line(ps, l)
+        return xyz_s, xyz_e, ps, pe, l, e0
+
+    def residuals_and_cost(T, f, g):
+        xyz = lie.transform_point(T, Xw)
+        r_p = (points.obs + f) - geometry.project(K, xyz)
+        chi2_p = proj_info * torch.sum(r_p * r_p, -1)
+        r_f = f - points.flow0
+        chi2_f = flow_prior_info * torch.sum(r_f * r_f, -1)
+        cost = torch.sum(pvalid * (_huber_rho(chi2_p, delta_mono) + chi2_f), -1)
+        if not use_lines:
+            return cost, (xyz, r_p, r_f, chi2_p, None, None, None)
+        # second component identically zero in the error (reference quirk);
+        # invalid padded lines hard-zeroed (0 * NaN would poison the cost)
+        e0 = line_parts(T, g)[5]
+        r_l = torch.stack([e0, torch.zeros_like(e0)], -1)
+        r_l = torch.where(lines.valid[..., None], torch.nan_to_num(r_l),
+                          torch.zeros_like(r_l))
+        chi2_l = line_proj_info * torch.sum(r_l * r_l, -1)
+        r_g = g - lines.flow0
+        chi2_g = line_prior_info * torch.sum(r_g * r_g, -1)
+        cost = cost + torch.sum(
+            lvalid * (_huber_rho(chi2_l, delta_line) + chi2_g), -1)
+        return cost, (xyz, r_p, r_f, chi2_p, r_l, r_g, chi2_l)
+
+    def build_and_solve(T, f, g, lam):
+        """One damped Gauss-Newton (LM trial) step per lane."""
+        cost, (xyz, r_p, r_f, chi2_p, r_l, r_g, chi2_l) = residuals_and_cost(
+            T, f, g)
+        lam_ = lam[:, None]
+        # --- points: J_f = I2; Hff_i = (w_p + w_f + lam) I2 ---
+        Jx = _point_proj_jacobian(xyz, fx, fy)                   # (B,N,2,6)
+        w_p = pvalid * _huber_weight(chi2_p, delta_mono) * proj_info
+        w_f = pvalid * flow_prior_info
+        Hxx = torch.einsum("bnki,bnkj,bn->bij", Jx, Jx, w_p)
+        bx = -torch.einsum("bnki,bnk,bn->bi", Jx, r_p, w_p)
+        hff = torch.where(points.valid, w_p + w_f + lam_,
+                          torch.ones_like(w_p))
+        inv_hff = 1.0 / hff
+        bf = -(w_p[..., None] * r_p + w_f[..., None] * r_f)
+        Hxf = Jx.transpose(-1, -2) * w_p[..., None, None]         # (B,N,6,2)
+        Hxx = Hxx - torch.einsum("bnik,bnjk,bn->bij", Hxf, Hxf, inv_hff)
+        bx = bx - torch.einsum("bnik,bnk,bn->bi", Hxf, bf, inv_hff)
+
+        if use_lines:
+            xyz_s, xyz_e, ps, pe, l_img, _ = line_parts(T, g)
+            l2 = l_img[..., :2]
+            Jlx = torch.stack([
+                torch.einsum("bmk,bmki->bmi", l2, -_point_proj_jacobian(xyz_s, fx, fy)),
+                torch.einsum("bmk,bmki->bmi", l2, -_point_proj_jacobian(xyz_e, fx, fy)),
+            ], -2)                                                # (B,M,2,6)
+            Jlg = line_flow_jacobian(g, lines.obs, ps, pe)        # (B,M,2,4)
+            zero = torch.zeros((), dtype=dtype, device=dev)
+            Jlx = torch.where(lmask, torch.nan_to_num(Jlx), zero)
+            Jlg = torch.where(lmask, torch.nan_to_num(Jlg), zero)
+            w_l = lvalid * _huber_weight(chi2_l, delta_line) * line_proj_info
+            w_g = lvalid * line_prior_info
+            Hxx = Hxx + torch.einsum("bmki,bmkj,bm->bij", Jlx, Jlx, w_l)
+            bx = bx - torch.einsum("bmki,bmk,bm->bi", Jlx, r_l, w_l)
+            Hgg = (torch.einsum("bmki,bmkj,bm->bmij", Jlg, Jlg, w_l)
+                   + (w_g + lam_)[..., None, None] * eye4)
+            Hgg = torch.where(lmask, Hgg, eye4)
+            bg = -(torch.einsum("bmki,bmk,bm->bmi", Jlg, r_l, w_l)
+                   + w_g[..., None] * r_g)
+            Hxg = torch.einsum("bmki,bmkj,bm->bmij", Jlx, Jlg, w_l)
+            inv_Hgg = torch.linalg.inv(Hgg)
+            Hxx = Hxx - torch.einsum("bmik,bmkl,bmjl->bij", Hxg, inv_Hgg, Hxg)
+            bx = bx - torch.einsum("bmik,bmkl,bml->bi", Hxg, inv_Hgg, bg)
+
+        Hxx = Hxx + lam[:, None, None] * eye6
+        dxi = torch.linalg.solve(Hxx, bx)
+        df = inv_hff[..., None] * (bf - torch.einsum("bnik,bi->bnk", Hxf, dxi))
+        gain_den = (torch.sum(dxi * (lam_ * dxi + bx), -1)
+                    + torch.sum(pvalid[..., None] * df * (lam_[..., None] * df + bf),
+                                (-1, -2)))
+        if use_lines:
+            dg = torch.einsum("bmij,bmj->bmi", inv_Hgg,
+                              bg - torch.einsum("bmik,bi->bmk", Hxg, dxi))
+            gain_den = gain_den + torch.sum(
+                lvalid[..., None] * dg * (lam_[..., None] * dg + bg), (-1, -2))
+        else:
+            dg = torch.zeros_like(g)
+        return cost, dxi, df, dg, gain_den
+
+    def initial_lambda():
+        """g2o: lambda0 = 1e-5 * max(diag(H)) with the Huber-weighted H."""
+        xyz = lie.transform_point(T_init, Xw)
+        r_p = (points.obs + points.flow0) - geometry.project(K, xyz)
+        chi2_p = proj_info * torch.sum(r_p * r_p, -1)
+        w_p = pvalid * _huber_weight(chi2_p, delta_mono) * proj_info
+        Jx = _point_proj_jacobian(xyz, fx, fy)
+        diag = torch.einsum("bnki,bnki,bn->bi", Jx, Jx, w_p)
+        return 1e-5 * torch.clamp(diag.max(-1).values, min=1e-3)
+
+    T, f, g = T_init, points.flow0, lines.flow0
+    cost, _ = residuals_and_cost(T, f, g)
+    lam = initial_lambda()
+    nu = torch.full_like(lam, 2.0)
+    it = torch.zeros(T.shape[0], dtype=torch.int32, device=dev)
+    # an empty lane (all padding) can never accept a step: done at once
+    done = (pvalid.sum(-1) + lvalid.sum(-1)) < 1.0
+    syncs = 0
+    while True:
+        active = (~done) & (it < max_iterations)
+        syncs += 1
+        if not bool(active.any()):
+            break
+        c, dxi, df, dg, gain_den = build_and_solve(T, f, g, lam)
+        T_new = lie.se3_retract(T, dxi)
+        f_new, g_new = f + df, g + dg
+        new_cost, _ = residuals_and_cost(T_new, f_new, g_new)
+        rho = (c - new_cost) / torch.clamp(gain_den, min=1e-12)
+        accept = (rho > 0) & torch.isfinite(new_cost)
+        lam_acc = lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0)
+        lam_n = torch.where(accept, lam_acc, lam * nu)
+        nu_n = torch.where(accept, torch.full_like(nu, 2.0), nu * 2.0)
+        step_sq = torch.sum(dxi * dxi, -1)
+        done_n = ((accept & ((c - new_cost) < rel_tol * torch.clamp(c, min=1.0)))
+                  | (accept & (step_sq < 1e-16)) | (lam_n > 1e30))
+        # finished lanes keep their state (lax.while_loop under vmap)
+        take = active & accept
+        T = torch.where(take[:, None, None], T_new, T)
+        f = torch.where(take[:, None, None], f_new, f)
+        g = torch.where(take[:, None, None], g_new, g)
+        cost = torch.where(take, new_cost, cost)
+        lam = torch.where(active, lam_n, lam)
+        nu = torch.where(active, nu_n, nu)
+        it = it + active.to(torch.int32)
+        done = torch.where(active, done_n, done)
+
+    # --- outlier gating (Optimizer.cc:6681-6782) ---
+    _, (_, _, _, chi2_p, _, _, chi2_l) = residuals_and_cost(T, f, g)
+    point_inlier = points.valid & (chi2_p <= rp_thres)
+    if use_lines:
+        n_inl = point_inlier.sum(-1, dtype=torch.int32)
+        weight1 = torch.pow(2.0, -(n_inl // line_weight_thr).to(dtype))
+        line_inlier = lines.valid & (chi2_l <= (weight1 * 7.815)[:, None])
+    else:
+        line_inlier = torch.zeros_like(lines.valid)
+    return FlowPoseResult(
+        # SE(3) projection of the LM composition chain (lie.so3_orthonormalize)
+        pose=lie.se3_orthonormalize(T), flow=f, line_flow=g,
+        point_inlier=point_inlier, line_inlier=line_inlier,
+        n_iters=it, final_cost=cost, host_syncs=syncs)
