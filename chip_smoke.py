@@ -4,16 +4,18 @@
     python3 chip_smoke.py
 
 1. Builds the package's CUDA kernels from ``sdpl_slam_torch/csrc``.
-2. Kernel phase: the FAST-9/16 score kernel against its plain PyTorch
+2. Kernel phase: the FAST-9/16 pyramid kernel against its plain PyTorch
    version at every pyramid level of a KITTI-size frame (1242x375 down to
-   347x105), both thresholds; bit-exact at level 0, identical corner masks
-   and rtol 1e-6 above it.  Times both with CUDA events (median of 25).
+   347x105; one launch) and of two frames (one launch), both thresholds,
+   bit for bit.  Device time from CUDA events around 200 back-to-back
+   launches, warm and with the L2 cache flushed; wall time of one call;
+   the bytes/operations bound of this run's data and the share reached.
 3. Slice phase: ~10 KITTI-scale synthetic frames (the JAX bench's
    sequence: 1242x375, 2 moving objects, 0.2 px flow noise, reference
    caps, FAST in the loop, lines injected) through
    ``System(settings, device="cuda").track_rgbd`` and ``save_results``.
-   Checks that every frame ran the FAST kernel (8 launches a frame, one
-   per pyramid level), that the 7 result files exist, that the camera RPE
+   Checks that every frame ran the FAST kernel (one launch a frame for
+   the whole pyramid), that the 7 result files exist, that the camera RPE
    is under the bench's GT gates (t < 5 mm, r < 0.1 deg), and that the
    first frames agree with the same slice run on the CPU.
 
@@ -31,7 +33,13 @@ import time
 
 N_FRAMES = 10          # tracked on the card
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
-TIMING_REPS = 25
+TIMING_REPS = 25       # wall: median of single calls
+DEVICE_REPS = 200      # device: back-to-back launches per event pair
+L2_FLUSH_BYTES = 64 * 2 ** 20
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM (the guide's table)
+# float32 adds, compares and max outside the tensor cores: the 67 TFLOP/s
+# peak counts a fused multiply-add as two operations
+FP32_OPS_PER_S = 33.5e12
 
 
 def _nvidia_smi():
@@ -62,65 +70,166 @@ def _median_ms(fn, reps=TIMING_REPS):
     return times[len(times) // 2]
 
 
-def _device_ms(fn, reps=20):
-    """Device time per call of ``fn``: the summed duration of the CUDA
-    kernels it launches, from a torch.profiler trace; None when the
-    profiler records no device activity on this machine."""
+def _device_ms(fn, reps=DEVICE_REPS, flush=None):
+    """Device time per call of ``fn`` from CUDA events: ``reps`` calls
+    back to back, enqueued while the card is held in ``torch.cuda._sleep``
+    so that the host's launch path does not pace them.  With ``flush`` (a
+    tensor), each call follows a write of it (evicting the L2 cache) and
+    is timed by its own pair of events."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    cycles = 2 ** 27
+    for _ in range(4):
+        torch.cuda._sleep(cycles)
+        slept = torch.cuda.Event()
+        slept.record()
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(2 if flush is None else 2 * reps)]
+        if flush is None:
+            ev[0].record()
+            for _ in range(reps):
+                fn()
+            ev[1].record()
+        else:
+            for i in range(reps):
+                flush.fill_(float(i))
+                ev[2 * i].record()
+                fn()
+                ev[2 * i + 1].record()
+        ahead = not slept.query()      # all enqueued before the card woke
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    return total_us / 1e3 / reps if total_us > 0 else None
+        if ahead:
+            return sum(ev[2 * i].elapsed_time(ev[2 * i + 1])
+                       for i in range(len(ev) // 2)) / reps
+        cycles *= 4
+    raise RuntimeError("the host could not enqueue %d calls ahead of the "
+                       "card" % reps)
 
 
-def kernel_phase(gray, dev):
-    """FAST kernel vs plain at every level; returns (max_abs_err,
-    kernel ms per frame, plain ms per frame, rows)."""
+def _ops_needed(levels, maps, t_lo):
+    """Float operations the kernel does on this data, and its candidate
+    count: for every pixel the compass test (8 min/max, 2 subtractions, 2
+    compares); for each candidate (2 bright or 2 dark compass entries at
+    t_lo) the window minima of one polarity and their tests (79 min/max, 1
+    subtraction, 2 compares), 80 more where both polarities can run; for
+    each t_lo corner the 16 differences and both SADs (2 x (16 subtractions,
+    16 max, 15 adds))."""
+    import torch
+    import torch.nn.functional as F
+
+    ops = cands = 0
+    for lv, (hi, lo) in zip(levels, maps):
+        h, w = lv.shape
+        p = F.pad(lv, (3, 3, 3, 3))
+        d = torch.stack([p[3 + dv:3 + dv + h, 3 + du:3 + du + w]
+                         for du, dv in ((0, -3), (3, 0), (0, 3), (-3, 0))]) - lv
+        bright = (d > t_lo).sum(0) >= 2
+        dark = (d < -t_lo).sum(0) >= 2
+        cand = int((bright | dark).sum())
+        cands += cand
+        ops += (12 * h * w + 82 * cand + 80 * int((bright & dark).sum())
+                + 110 * int((lo > 0).sum()))
+    return ops, cands
+
+
+def _sass_sections(lib):
+    """Instruction counts of the built kernel's SASS (cuobjdump -sass),
+    split at its block barriers: [to the first barrier (the compass pass
+    over one unit, 8 rows a lane), between the barriers (the full-test
+    loop, one candidate a thread a trip), after]; None where the toolkit
+    has no cuobjdump."""
+    import re
+
+    from sdpl_slam_torch.utils import cuda_build
+
+    exe = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    r = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                       text=True, timeout=120)
+    if r.returncode != 0:
+        return None
+    sections = [0]
+    for ln in r.stdout.splitlines():
+        m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)",
+                     ln)
+        if not m or m.group(1) == "NOP":
+            continue
+        if m.group(1).startswith("BAR.SYNC"):
+            sections.append(0)
+        else:
+            sections[-1] += 1
+    return sections
+
+
+def kernel_phase(grays, dev):
+    """The FAST pyramid kernel against its plain version, bit for bit, at
+    every level of one frame's pyramid (one launch) and of two frames'
+    pyramids (one launch); then its times.  Returns a dict."""
     import torch
 
     from sdpl_slam_torch.ops import fast
 
-    img = torch.from_numpy(gray).to(dev).float()
     cfg = fast.FastPyramidConfig()
-    h, w = img.shape
-    max_err, k_total, p_total, rows = 0.0, 0.0, 0.0, []
-    for lvl, s, lh, lw in fast.pyramid_shapes(h, w, cfg):
-        li = (img if lvl == 0 else fast.resize_linear(img, lh, lw)).contiguous()
-        hi, lo = fast.fast_score_maps(li, cfg.ini_threshold, cfg.min_threshold)
-        ref_hi = fast.fast_score_map_torch(li, cfg.ini_threshold)
-        ref_lo = fast.fast_score_map_torch(li, cfg.min_threshold)
+    t_hi, t_lo = cfg.ini_threshold, cfg.min_threshold
+    frames = []
+    for g in grays:
+        img = torch.from_numpy(g).to(dev).float()
+        frames.append([(img if lvl == 0 else fast.resize_linear(img, lh, lw))
+                       .contiguous() for lvl, s, lh, lw in
+                       fast.pyramid_shapes(*img.shape, cfg)])
+    levels = frames[0]
+    plain = [(fast.fast_score_map_torch(lv, t_hi),
+              fast.fast_score_map_torch(lv, t_lo)) for lv in levels]
+    plain += [(fast.fast_score_map_torch(lv, t_hi),
+               fast.fast_score_map_torch(lv, t_lo)) for lv in frames[1]]
+    max_err = 0.0
+    for lvls, what in ((levels, "one pyramid"),
+                       (frames[0] + frames[1], "two pyramids")):
+        before = fast.fast_score_pyramid.launches
+        maps = fast.fast_score_pyramid(lvls, t_hi, t_lo)
         torch.cuda.synchronize()
-        for got, ref in ((hi, ref_hi), (lo, ref_lo)):
-            if lvl == 0 and not torch.equal(got, ref):
-                raise AssertionError("level 0: kernel != plain (not bit-exact)")
-            if not torch.equal(got > 0, ref > 0):
-                raise AssertionError("level %d: corner masks differ" % lvl)
-            if not torch.allclose(got, ref, rtol=1e-6, atol=0.0):
-                raise AssertionError("level %d: scores differ beyond rtol 1e-6"
-                                     % lvl)
-            max_err = max(max_err, float((got - ref).abs().max()))
+        if fast.fast_score_pyramid.launches != before + 1:
+            raise AssertionError("%s: not one launch" % what)
+        for i, (got, ref) in enumerate(zip(maps, plain)):
+            for g, r, t in zip(got, ref, (t_hi, t_lo)):
+                max_err = max(max_err, float((g - r).abs().max()))
+                if not torch.equal(g, r):
+                    raise AssertionError(
+                        "%s, level %d, t=%g: kernel != plain (not bit-exact)"
+                        % (what, i % len(levels), t))
+    maps = plain[:len(levels)]
+    pixels = sum(lv.numel() for lv in levels)
+    bound_bytes = 12 * pixels          # read 4 B, write 2 x 4 B per pixel
+    ops, cands = _ops_needed(levels, maps, t_lo)
+    bound_ms = max(bound_bytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
+    bound_by = ("bytes" if bound_bytes / HBM_BYTES_PER_S >= ops / FP32_OPS_PER_S
+                else "operations")
 
-        def kernel():
-            fast.fast_score_maps(li, cfg.ini_threshold, cfg.min_threshold)
+    def kernel(lvls=levels):
+        fast.fast_score_pyramid(lvls, t_hi, t_lo)
 
-        def plain():
-            fast.fast_score_map_torch(li, cfg.ini_threshold)
-            fast.fast_score_map_torch(li, cfg.min_threshold)
+    def plain_fn(lvls=levels):
+        for lv in lvls:
+            fast.fast_score_map_torch(lv, t_hi)
+            fast.fast_score_map_torch(lv, t_lo)
 
-        k_ms, p_ms = _median_ms(kernel), _median_ms(plain)
-        k_total += k_ms
-        p_total += p_ms
-        rows.append((lvl, lh, lw, k_ms, p_ms, _device_ms(kernel),
-                     _device_ms(plain)))
-    return max_err, k_total, p_total, rows
+    flush = torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32, device=dev)
+    rows = []
+    for i, lv in enumerate(levels):
+        rows.append((i, lv.shape[1], lv.shape[0],
+                     _device_ms(lambda: kernel([lv])),
+                     _median_ms(lambda: kernel([lv])),
+                     _median_ms(lambda: plain_fn([lv]))))
+    return dict(max_err=max_err, rows=rows, pixels=pixels, cands=cands,
+                bound_bytes=bound_bytes, ops=ops, bound_ms=bound_ms,
+                bound_by=bound_by,
+                dev_ms=_device_ms(kernel),
+                dev_cold_ms=_device_ms(kernel, flush=flush),
+                wall_ms=_median_ms(kernel), plain_ms=_median_ms(plain_fn),
+                two_dev_ms=_device_ms(lambda: kernel(frames[0] + frames[1])))
 
 
 def slice_phase(seq, out_dir):
@@ -135,7 +244,7 @@ def slice_phase(seq, out_dir):
 
     system = System(slice_settings(seq.cfg), verbose=False, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    fast.fast_score_maps.launches = 0
+    fast.fast_score_pyramid.launches = 0
     system.tracker.lm_host_syncs = 0
     frame_ms = []
     for t in range(N_FRAMES):
@@ -148,14 +257,14 @@ def slice_phase(seq, out_dir):
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
             raise AssertionError("frame %d: pose not a finite 4x4" % t)
-    launches = fast.fast_score_maps.launches
+    launches = fast.fast_score_pyramid.launches
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
 
-    levels = len(fast.pyramid_shapes(seq.cfg.height, seq.cfg.width))
-    if launches != levels * N_FRAMES:
+    if launches != N_FRAMES:
         raise AssertionError("FAST kernel launched %d times for %d frames "
-                             "(%d levels)" % (launches, N_FRAMES, levels))
+                             "(one launch per frame expected)"
+                             % (launches, N_FRAMES))
     system.save_results(out_dir)
     files = ("obj_mot_stereo_new.txt", "obj_mot_stereo_rf_new.txt",
              "obj_mot_gt.txt", "obj_centre.txt", "initial_stereo_new.txt",
@@ -226,31 +335,51 @@ def main():
         for ln in ptxas.read_text().splitlines():
             if "registers" in ln or "spill" in ln:
                 print("  ptxas:", ln.strip())
+    sass = _sass_sections(lib)
 
     t0 = time.perf_counter()
     seq = SynthSequence(kitti_config(n_frames=N_FRAMES))
     print("synthetic KITTI-scale sequence: %d frames in %.1f s"
           % (N_FRAMES, time.perf_counter() - t0))
 
-    max_err, k_ms, p_ms, rows = kernel_phase(seq.frame(0).gray,
-                                             torch.device("cuda"))
-    print("kernel phase: FAST-9/16 score maps, kernel == plain "
-          "(max abs err %g)" % max_err)
-    print("  both thresholds per call; wall = CUDA events around one call "
-          "(median of %d), device = profiled kernel time" % TIMING_REPS)
-    print("  level  shape      kernel_ms  plain_ms  kernel_dev_ms  plain_dev_ms")
-
-    def fmt(x):
-        return "not measured" if x is None else "%.4f" % x
-
-    for lvl, lh, lw, k, p, kd, pd in rows:
-        print("  %5d  %4dx%-4d  %9.4f  %8.4f  %13s  %12s"
-              % (lvl, lw, lh, k, p, fmt(kd), fmt(pd)))
-    dev = [r[5:] for r in rows]
-    kd = None if any(d[0] is None for d in dev) else sum(d[0] for d in dev)
-    pd = None if any(d[1] is None for d in dev) else sum(d[1] for d in dev)
-    print("  pyramid    total      %9.4f  %8.4f  %13s  %12s"
-          % (k_ms, p_ms, fmt(kd), fmt(pd)))
+    k = kernel_phase([seq.frame(0).gray, seq.frame(1).gray],
+                     torch.device("cuda"))
+    print("kernel phase: FAST-9/16 score maps of the whole pyramid, both "
+          "thresholds, one launch; kernel == plain bit for bit at all %d "
+          "levels, also for two frames' pyramids in one launch (max abs err "
+          "%g)" % (len(k["rows"]), k["max_err"]))
+    print("  device = CUDA events around %d back-to-back launches / %d; "
+          "wall = CUDA events around one call, launch path included (median "
+          "of %d)" % (DEVICE_REPS, DEVICE_REPS, TIMING_REPS))
+    print("  level  shape      kernel_dev_ms  kernel_wall_ms  plain_wall_ms")
+    for lvl, lw, lh, kd, kw, pw in k["rows"]:
+        print("  %5d  %4dx%-4d  %13.5f  %14.5f  %13.5f  (one-level launch)"
+              % (lvl, lw, lh, kd, kw, pw))
+    print("  pyramid  %d px   %13.5f  %14.5f  %13.5f  (one launch)"
+          % (k["pixels"], k["dev_ms"], k["wall_ms"], k["plain_ms"]))
+    print("  pyramid device ms with L2 flushed (64 MiB written before each "
+          "launch): %.5f; the main path sees the warm figure (its levels "
+          "were written by the resize just before)" % k["dev_cold_ms"])
+    print("  two frames' pyramids, one launch: device %.5f ms"
+          % k["two_dev_ms"])
+    if sass is None or len(sass) != 3:
+        print("  SASS instructions per pixel: not measured (sections %s)"
+              % sass)
+    else:
+        frac = k["cands"] / k["pixels"]
+        print("  SASS (static, cuobjdump): %d instructions; compass pass %d "
+              "per unit of 8 rows = %.1f a pixel; full-test loop %d a "
+              "candidate; %.2f %% of pixels are candidates, so %.1f a pixel "
+              "on this frame" % (sum(sass), sass[0], sass[0] / 8, sass[1],
+                                 100 * frac, sass[0] / 8 + frac * sass[1]))
+    print("  bound: %d B (%.1f MB) over %.2f TB/s = %.5f ms; %d ops over "
+          "%.1f T/s = %.5f ms; bound by %s; device time at %.1f %% of the "
+          "bound (warm), %.1f %% (L2 flushed); %s" % (
+              k["bound_bytes"], k["bound_bytes"] / 1e6, HBM_BYTES_PER_S / 1e12,
+              k["bound_bytes"] / HBM_BYTES_PER_S * 1e3, k["ops"],
+              FP32_OPS_PER_S / 1e12, k["ops"] / FP32_OPS_PER_S * 1e3,
+              k["bound_by"], 100 * k["bound_ms"] / k["dev_ms"],
+              100 * k["bound_ms"] / k["dev_cold_ms"], smi))
 
     with tempfile.TemporaryDirectory() as out_dir:
         res = slice_phase(seq, out_dir)
@@ -272,14 +401,17 @@ def main():
           "difference %g" % (N_CPU_CHECK, err))
 
     print(json.dumps({"kernels": [{
-        "name": "fast_score2",
+        "name": "fast_score_pyramid",
         "route": "cuda",
         "source": "sdpl_slam_torch/csrc/fast_score.cu",
         "replaces": "sdpl_slam_tpu/ops/fast.py:119",
         "launches": res["launches"],
-        "max_abs_err": max_err,
-        "ms": k_ms,
-        "plain_ms": p_ms,
+        "max_abs_err": k["max_err"],
+        "ms": k["dev_ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,            # no PyTorch call computes FAST-9/16
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

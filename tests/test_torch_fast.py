@@ -3,7 +3,8 @@
 The level-0 score map is bit-exact against both the XLA version and the
 Pallas kernel (run in interpret mode, as the JAX suite runs it on the
 CPU): its values are integer sums, so no order of summation can differ.
-The CUDA kernel against the plain version is in test_torch_gpu.py.
+The CUDA kernel against the plain version is in test_torch_gpu.py; here a
+numpy mirror of its arithmetic is held against the plain version.
 """
 
 import jax
@@ -151,14 +152,202 @@ def test_nms3_matches_jax():
 
 def test_wrapper_dispatches_on_device_and_checks_inputs(images):
     img = torch.from_numpy(images["synth"]).float()
-    before = tf.fast_score_maps.launches
-    hi, lo = tf.fast_score_maps(img, 20.0, 7.0)
-    assert tf.fast_score_maps.launches == before     # CPU: no kernel
+    before = tf.fast_score_pyramid.launches
+    [(hi, lo)] = tf.fast_score_pyramid([img], 20.0, 7.0)
+    assert tf.fast_score_pyramid.launches == before     # CPU: no kernel
     assert torch.equal(hi, tf.fast_score_map_torch(img, 20.0))
     assert torch.equal(lo, tf.fast_score_map_torch(img, 7.0))
     with pytest.raises(ValueError):
-        tf.fast_score_maps(img.double(), 20.0, 7.0)
+        tf.fast_score_pyramid([img.double()], 20.0, 7.0)
     with pytest.raises(ValueError):
-        tf.fast_score_maps(img[None], 20.0, 7.0)
+        tf.fast_score_pyramid([img[None]], 20.0, 7.0)
     with pytest.raises(ValueError):
-        tf.fast_score_maps(img.t(), 20.0, 7.0)
+        tf.fast_score_pyramid([img.t()], 20.0, 7.0)
+    with pytest.raises(ValueError):                     # kernel's premise
+        tf.fast_score_pyramid([img], 7.0, 20.0)
+    meta = torch.empty((16, 16), device="meta")
+    with pytest.raises(ValueError):
+        tf.fast_score_pyramid([meta], 20.0, 7.0)
+    with pytest.raises(ValueError):
+        tf.fast_score_pyramid([img, meta], 20.0, 7.0)
+    assert tf.fast_score_pyramid([], 20.0, 7.0) == []
+
+
+# --- the CUDA kernel's shortcuts, checked where the kernel cannot run ---
+
+_COMPASS = (1 << 0) | (1 << 4) | (1 << 8) | (1 << 12)
+
+
+def _circular_run9(m):
+    """Direct definition: some 9 circularly consecutive ring bits set."""
+    run = np.zeros(m.shape, bool)
+    for start in range(16):
+        bits = sum(1 << ((start + k) % 16) for k in range(9))
+        run |= (m & bits) == bits
+    return run
+
+
+def _best_arc(r):
+    """``best_arc`` of csrc/fast_score.cu over axis 0 (the 16 ring
+    samples): the largest minimum of the 16 circular windows of 9, built
+    by doubling."""
+    a = np.minimum(r, np.roll(r, -1, 0))
+    a = np.minimum(a, np.roll(a, -2, 0))
+    a = np.minimum(np.minimum(a, np.roll(a, -4, 0)), np.roll(r, -8, 0))
+    return a.max(0)
+
+
+def test_run9_covers_two_compass_entries_all_masks():
+    """Over all 2^16 masks: every mask with a circular 9-run has at least 2
+    of the compass bits {0, 4, 8, 12} set (the kernel's early exit), and
+    the kernel's window minima, on the mask's bits as samples and on the
+    bits negated, find exactly the circular 9-runs of ones and of zeros."""
+    m = np.arange(1 << 16, dtype=np.uint32)
+    run = _circular_run9(m)
+    assert 0 < run.sum() < m.size
+    compass = np.array([bin(x).count("1") for x in m & _COMPASS])
+    assert np.all(compass[run] >= 2)
+    bits = ((m[None] >> np.arange(16, dtype=np.uint32)[:, None]) & 1)
+    bits = bits.astype(np.float32)
+    np.testing.assert_array_equal(_best_arc(bits) > 0.5, run)
+    np.testing.assert_array_equal(_best_arc(-bits) > -0.5,
+                                  _circular_run9(~m & 0xFFFF))
+
+
+def _kernel_mirror(img, t_hi, t_lo):
+    """csrc/fast_score.cu's arithmetic in float32 numpy: the compass test
+    on the second largest / smallest raw compass sample; for candidates
+    the window-minimum margin of the polarity (or both) the compass allows,
+    on the samples or their negation; the t_lo-then-t_hi order and the
+    in-order SADs.  Returns (hi, lo, candidates)."""
+    f32 = np.float32
+    img = np.asarray(img, f32)
+    h, w = img.shape
+    p = np.pad(img, 3)
+    ring = np.stack([p[3 + dv:3 + dv + h, 3 + du:3 + du + w]
+                     for du, dv in tf._CIRCLE])
+    a, b, e, f = ring[0], ring[4], ring[8], ring[12]
+    u = np.minimum(np.maximum(a, b), np.maximum(e, f))
+    v = np.maximum(np.minimum(a, b), np.minimum(e, f))
+    bright = (np.maximum(u, v) - img) > f32(t_lo)
+    dark = (np.minimum(u, v) - img) < -f32(t_lo)
+    cand = bright | dark
+    flip = np.where(bright, f32(1), f32(-1))
+    m = _best_arc(ring * flip) - img * flip
+    both = bright & dark
+    m[both] = np.maximum(m, _best_arc(-ring) - (-img))[both]
+    lo_c = cand & (m > f32(t_lo))
+    hi_c = lo_c & (m > f32(t_hi))
+    d = np.abs(ring - img[None])
+
+    def sad(t):
+        s = np.maximum(d[0] - f32(t), f32(0))
+        for i in range(1, 16):
+            s = s + np.maximum(d[i] - f32(t), f32(0))
+        return s
+
+    lo = np.where(lo_c, sad(t_lo), f32(0))
+    hi = np.where(hi_c, sad(t_hi), f32(0))
+    return hi, lo, cand
+
+
+def _torch_levels(img):
+    img = torch.from_numpy(np.asarray(img)).float()
+    return [(img if lvl == 0 else tf.resize_linear(img, lh, lw)).contiguous()
+            for lvl, s, lh, lw in tf.pyramid_shapes(*img.shape)]
+
+
+@pytest.mark.parametrize("name", ["noise", "synth"])
+def test_kernel_shortcuts_reproduce_plain(images, name):
+    """The kernel's arithmetic, mirrored in numpy, equals the plain version
+    bit for bit at every pyramid level; t_hi corners lie inside t_lo
+    corners, and those inside the compass candidates."""
+    for lv in _torch_levels(images[name]):
+        hi_ref = tf.fast_score_map_torch(lv, 20.0).numpy()
+        lo_ref = tf.fast_score_map_torch(lv, 7.0).numpy()
+        hi, lo, cand = _kernel_mirror(lv.numpy(), 20.0, 7.0)
+        np.testing.assert_array_equal(hi, hi_ref)
+        np.testing.assert_array_equal(lo, lo_ref)
+        assert np.all(lo_ref[hi_ref > 0] > 0)
+        assert np.all(cand[lo_ref > 0])
+    if name == "synth":                  # the early exit does skip pixels
+        assert cand.mean() < 0.5
+
+
+@pytest.mark.parametrize("name", ["noise", "synth"])
+def test_pyramid_on_cpu_is_plain_per_level(images, name):
+    """fast_score_pyramid on CPU tensors is the plain version per level; at
+    level 0 it is JAX's XLA and interpret-mode Pallas maps bit for bit."""
+    levels = _torch_levels(images[name])
+    maps = tf.fast_score_pyramid(levels, 20.0, 7.0)
+    assert len(maps) == len(levels) == 8
+    for lv, (hi, lo) in zip(levels, maps):
+        assert hi.shape == lo.shape == lv.shape
+        assert torch.equal(hi, tf.fast_score_map_torch(lv, 20.0))
+        assert torch.equal(lo, tf.fast_score_map_torch(lv, 7.0))
+        assert bool(torch.all(lo[hi > 0] > 0))       # t_hi within t_lo
+    img0 = jnp.asarray(levels[0].numpy())
+    for got, t in zip(maps[0], (20.0, 7.0)):
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jf.fast_score_map(img0, t)))
+        np.testing.assert_array_equal(
+            got.numpy(), np.asarray(jf.fast_score_map_pallas(
+                img0, t, interpret=True)))
+
+
+def _detect_keypoints_per_level(img, cfg):
+    """detect_keypoints as it ran before the pyramid kernel: one score-map
+    pair per level, in a loop."""
+    img_f = img.to(torch.float32)
+    all_uv, all_sc, all_va = [], [], []
+    for lvl, s, lh, lw in tf.pyramid_shapes(*img.shape, cfg):
+        li = img_f if lvl == 0 else tf.resize_linear(img_f, lh, lw)
+        score = tf.fast_score_map_torch(li, cfg.ini_threshold)
+        score_min = tf.fast_score_map_torch(li, cfg.min_threshold)
+        score = tf._nms3(torch.where(score > 0, score, 0.25 * score_min))
+        uv, sc, va = tf._grid_topk(score, max(cfg.cell // int(round(s)), 8),
+                                   cfg.per_cell)
+        all_uv.append(torch.round(uv * s))
+        all_sc.append(sc)
+        all_va.append(va)
+    uv, sc, va = torch.cat(all_uv), torch.cat(all_sc), torch.cat(all_va)
+    _, order = tf._topk_stable(torch.where(va, sc, torch.full_like(sc, -1.0)),
+                               cfg.n_features)
+    return uv[order], sc[order], va[order] & (sc[order] > 0)
+
+
+@pytest.mark.parametrize("name", ["noise", "synth"])
+def test_detect_keypoints_same_as_per_level_loop(images, name):
+    img = torch.from_numpy(images[name])
+    cfg = tf.FastPyramidConfig()
+    for got, ref in zip(tf.detect_keypoints(img, cfg),
+                        _detect_keypoints_per_level(img, cfg)):
+        assert torch.equal(got, ref)
+
+
+def test_detect_keypoints_batch_matches_jax():
+    """B = 2 small frames: the port's batch is its per-frame detection
+    exactly, and JAX's vmapped batch exactly at level 0 and to 99 % of the
+    keypoint set over all 8 levels (the resize, as above)."""
+    seq = SynthSequence(kitti_config(n_frames=2))
+    imgs = np.stack([seq.frame(t).gray[100:292, 300:940] for t in range(2)])
+    timgs = torch.from_numpy(imgs)
+    for cfg_kw in ({"n_levels": 1, "n_features": 400}, {"n_features": 400}):
+        tcfg = tf.FastPyramidConfig(**cfg_kw)
+        ut, st, vt = tf.detect_keypoints_batch(timgs, tcfg)
+        assert ut.shape == (2, 400, 2) and st.shape == vt.shape == (2, 400)
+        uj, sj, vj = (np.asarray(a) for a in jf.detect_keypoints_batch(
+            jnp.asarray(imgs), jf.FastPyramidConfig(**cfg_kw)))
+        for b in range(2):
+            for got, ref in zip((ut[b], st[b], vt[b]),
+                                tf.detect_keypoints(timgs[b], tcfg)):
+                assert torch.equal(got, ref)
+            ref_set = set(map(tuple, uj[b][vj[b]]))
+            got_set = set(map(tuple, ut[b].numpy()[vt[b].numpy()]))
+            assert len(ref_set) > 100
+            if cfg_kw.get("n_levels") == 1:
+                np.testing.assert_array_equal(vt[b].numpy(), vj[b])
+                np.testing.assert_array_equal(st[b].numpy(), sj[b])
+                assert got_set == ref_set
+            else:
+                assert len(ref_set & got_set) >= 0.99 * len(ref_set)

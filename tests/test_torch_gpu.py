@@ -30,27 +30,75 @@ def seq():
 
 @pytest.mark.gpu
 def test_cuda_kernel_matches_plain(cuda, seq):
-    """Every pyramid level of a KITTI frame: kernel == plain, bit-exact
-    (same differences, same in-order SAD)."""
-    img = torch.from_numpy(seq.frame(0).gray).float()
-    h, w = img.shape
-    for lvl, s, lh, lw in tf.pyramid_shapes(h, w):
-        li = img if lvl == 0 else tf.resize_linear(img, lh, lw)
-        before = tf.fast_score_maps.launches
-        hi, lo = tf.fast_score_maps(li.to(cuda).contiguous(), 20.0, 7.0)
-        torch.cuda.synchronize()
-        assert tf.fast_score_maps.launches == before + 1
-        assert torch.equal(hi.cpu(), tf.fast_score_map_torch(li, 20.0))
-        assert torch.equal(lo.cpu(), tf.fast_score_map_torch(li, 7.0))
+    """Every pyramid level of two KITTI frames in one launch: kernel ==
+    plain, bit-exact (same differences, same in-order SAD)."""
+    levels = []
+    for t in range(2):
+        img = torch.from_numpy(seq.frame(t).gray).float()
+        h, w = img.shape
+        levels += [(img if lvl == 0 else tf.resize_linear(img, lh, lw))
+                   .contiguous() for lvl, s, lh, lw in tf.pyramid_shapes(h, w)]
+    before = tf.fast_score_pyramid.launches
+    maps = tf.fast_score_pyramid([lv.to(cuda) for lv in levels], 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert tf.fast_score_pyramid.launches == before + 1
+    for lv, (hi, lo) in zip(levels, maps):
+        assert torch.equal(hi.cpu(), tf.fast_score_map_torch(lv, 20.0))
+        assert torch.equal(lo.cpu(), tf.fast_score_map_torch(lv, 7.0))
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_odd_shapes(cuda):
+    """Levels smaller than a unit, of odd sides and all border, in one
+    launch with a KITTI-size one: kernel == plain, bit-exact."""
+    rng = np.random.default_rng(5)
+    shapes = [(1, 1), (2, 9), (5, 7), (7, 40), (33, 65), (9, 31), (375, 1242)]
+    levels = [torch.from_numpy(rng.uniform(0, 255, s).astype(np.float32))
+              for s in shapes]
+    maps = tf.fast_score_pyramid([lv.to(cuda) for lv in levels], 20.0, 7.0)
+    torch.cuda.synchronize()
+    for lv, (hi, lo) in zip(levels, maps):
+        assert torch.equal(hi.cpu(), tf.fast_score_map_torch(lv, 20.0))
+        assert torch.equal(lo.cpu(), tf.fast_score_map_torch(lv, 7.0))
+
+
+@pytest.mark.gpu
+def test_more_levels_than_one_launch_takes(cuda):
+    """70 levels: two launches (64 levels each at most), all bit-exact."""
+    rng = np.random.default_rng(6)
+    levels = [torch.from_numpy(rng.uniform(0, 255, (20 + i, 40 + 3 * i))
+                               .astype(np.float32)) for i in range(70)]
+    before = tf.fast_score_pyramid.launches
+    maps = tf.fast_score_pyramid([lv.to(cuda) for lv in levels], 20.0, 7.0)
+    torch.cuda.synchronize()
+    assert tf.fast_score_pyramid.launches == before + 2
+    for lv, (hi, lo) in zip(levels, maps):
+        assert torch.equal(hi.cpu(), tf.fast_score_map_torch(lv, 20.0))
+        assert torch.equal(lo.cpu(), tf.fast_score_map_torch(lv, 7.0))
+
+
+@pytest.mark.gpu
+def test_detect_keypoints_batch_on_card(cuda, seq):
+    """Two frames through one launch: each frame's keypoints are its
+    single-frame detection."""
+    imgs = torch.from_numpy(np.stack([seq.frame(t).gray for t in range(2)]))
+    before = tf.fast_score_pyramid.launches
+    got = tf.detect_keypoints_batch(imgs.to(cuda))
+    assert tf.fast_score_pyramid.launches == before + 1
+    for b in range(2):
+        for g, r in zip(got, tf.detect_keypoints(imgs[b].to(cuda))):
+            assert torch.equal(g[b], r)
 
 
 @pytest.mark.gpu
 def test_wrapper_refuses_bad_cuda_input(cuda):
     img = torch.zeros((64, 80), device=cuda)
     with pytest.raises(ValueError):
-        tf.fast_score_maps(img.double(), 20.0, 7.0)
+        tf.fast_score_pyramid([img.double()], 20.0, 7.0)
     with pytest.raises(ValueError):
-        tf.fast_score_maps(img.t(), 20.0, 7.0)
+        tf.fast_score_pyramid([img.t()], 20.0, 7.0)
+    with pytest.raises(ValueError):
+        tf.fast_score_pyramid([img, img.cpu()], 20.0, 7.0)
 
 
 @pytest.mark.gpu
