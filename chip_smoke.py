@@ -10,14 +10,24 @@
    bit for bit.  Device time from CUDA events around 200 back-to-back
    launches, warm and with the L2 cache flushed; wall time of one call;
    the bytes/operations bound of this run's data and the share reached.
-3. Slice phase: ~10 KITTI-scale synthetic frames (the JAX bench's
+3. Slice phase: 36 KITTI-scale synthetic frames (the JAX bench's
    sequence: 1242x375, 2 moving objects, 0.2 px flow noise, reference
    caps, FAST in the loop, lines injected) through
-   ``System(settings, device="cuda").track_rgbd`` and ``save_results``.
-   Checks that every frame ran the FAST kernel (one launch a frame for
-   the whole pyramid), that the 7 result files exist, that the camera RPE
-   is under the bench's GT gates (t < 5 mm, r < 0.1 deg), and that the
-   first frames agree with the same slice run on the CPU.
+   ``System(settings, device="cuda").track_rgbd`` and ``save_results``,
+   with the bench's window BA (window 20, overlap 4: windows at frames 19
+   and 35) and the global BA at the last frame.  Checks that every frame
+   ran the FAST kernel (one launch a frame for the whole pyramid), that
+   both windows and the global BA ran, that the 7 result files exist,
+   that the camera RPE of the primary and of the refined poses is under
+   the bench's GT gates (t < 5 mm, r < 0.1 deg), and that the first frames
+   agree with the same slice run on the CPU.  The second window is
+   replayed from a copy of the system under torch.profiler to count its
+   kernel launches and device time.
+4. BA phase: the final map with its camera poses perturbed, one window BA
+   (20 frames) twice on the card and once on the CPU: the card's two runs
+   must be identical (its scatter-adds sum in a fixed order), and card and
+   CPU must agree on the final cost and the window poses (tolerances
+   below).
 
 Any failure raises (non-zero exit).  The last two lines of standard
 output are the kernels' JSON line and ``{"ok": true, "device": ...}``.
@@ -31,8 +41,14 @@ import sys
 import tempfile
 import time
 
-N_FRAMES = 10          # tracked on the card
+N_FRAMES = 36          # tracked on the card
+LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
+BA_WINDOW = 20
+# BA phase: card vs CPU final cost; sound runs measured 7e-8 to 1.0e-4
+# (PERF.md)
+BA_COST_RTOL = 1e-3
+BA_POSE_ATOL = 1e-3    # BA phase: card vs CPU window poses (m, rotation)
 TIMING_REPS = 25       # wall: median of single calls
 DEVICE_REPS = 200      # device: back-to-back launches per event pair
 L2_FLUSH_BYTES = 64 * 2 ** 20
@@ -232,31 +248,50 @@ def kernel_phase(grays, dev):
                 two_dev_ms=_device_ms(lambda: kernel(frames[0] + frames[1])))
 
 
+def _lba_settings(seq):
+    from sdpl_slam_torch.utils.synthetic import lba_settings
+
+    s = lba_settings(seq.cfg)
+    s.run_global_ba = True
+    return s
+
+
+def _track(system, seq, t):
+    f = seq.frame(t)
+    return system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                             f.obj_rows, t * 0.1, N_FRAMES,
+                             line_detections=f.lines)
+
+
 def slice_phase(seq, out_dir):
-    """The port's main path on the card; returns its measurements."""
+    """The port's main path on the card; returns its measurements and
+    copies of the system taken just before each window's frame."""
+    import copy
+
     import numpy as np
     import torch
 
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
     from sdpl_slam_torch.utils import metrics
-    from sdpl_slam_torch.utils.synthetic import slice_settings
 
-    system = System(slice_settings(seq.cfg), verbose=False, device="cuda")
+    system = System(_lba_settings(seq), verbose=False, device="cuda")
+    replays = {}
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
     system.tracker.lm_host_syncs = 0
     frame_ms = []
     for t in range(N_FRAMES):
-        f = seq.frame(t)
+        if t in LBA_FRAMES:
+            replays[t] = copy.deepcopy(system)
         t0 = time.perf_counter()
-        pose = system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
-                                 f.obj_rows, t * 0.1, N_FRAMES,
-                                 line_detections=f.lines)
+        pose = _track(system, seq, t)
         torch.cuda.synchronize()
         frame_ms.append((time.perf_counter() - t0) * 1e3)
         if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
             raise AssertionError("frame %d: pose not a finite 4x4" % t)
+        if t == N_CPU_CHECK - 1:           # before a window rewrites them
+            first = [p.copy() for p in system.map.camera_poses]
     launches = fast.fast_score_pyramid.launches
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
@@ -265,6 +300,11 @@ def slice_phase(seq, out_dir):
         raise AssertionError("FAST kernel launched %d times for %d frames "
                              "(one launch per frame expected)"
                              % (launches, N_FRAMES))
+    runs = system.tracker.ba_runs
+    want = [("local", f) for f in LBA_FRAMES] + [("global", N_FRAMES - 1)]
+    if [(r["kind"], r["frame"]) for r in runs] != want:
+        raise AssertionError("batch BA runs %s, expected %s" % (
+            [(r["kind"], r["frame"]) for r in runs], want))
     system.save_results(out_dir)
     files = ("obj_mot_stereo_new.txt", "obj_mot_stereo_rf_new.txt",
              "obj_mot_gt.txt", "obj_centre.txt", "initial_stereo_new.txt",
@@ -273,35 +313,151 @@ def slice_phase(seq, out_dir):
     if missing:
         raise AssertionError("empty result files: %s" % missing)
     m = system.map
-    t_err, r_err = metrics.camera_rpe(m.camera_poses, m.camera_poses_gt)
-    if not (t_err < 0.005 and r_err < 0.1):
-        raise AssertionError("camera RPE %.5f m / %.4f deg over the GT gates"
-                             % (t_err, r_err))
+    rpe = {}
+    for name, poses in (("primary", m.camera_poses),
+                        ("refined", m.camera_poses_rf)):
+        t_err, r_err = metrics.camera_rpe(poses, m.camera_poses_gt)
+        rpe[name] = (t_err, r_err)
+        if not (t_err < 0.005 and r_err < 0.1):
+            raise AssertionError("%s camera RPE %.5f m / %.4f deg over the "
+                                 "GT gates" % (name, t_err, r_err))
     n_obj = sum(len(x) - 1 for x in m.rm_labels)
     if n_obj == 0:
         raise AssertionError("no object was tracked")
-    return dict(system=system, frame_ms=frame_ms, launches=launches,
-                syncs=syncs, peak=peak, t_err=t_err, r_err=r_err,
-                n_obj=n_obj)
+    return dict(system=system, replays=replays, first=first, frame_ms=frame_ms,
+                launches=launches, syncs=syncs, peak=peak, rpe=rpe,
+                n_obj=n_obj, ba_runs=runs)
 
 
-def cpu_check(seq, cuda_map):
+def window_replay(replay, seq, t):
+    """Frame ``t`` again from the copy of the system taken before it, the
+    global BA off; returns the replayed window's ``ba_runs`` entry."""
+    import torch
+
+    replay.tracker.cfg.run_global_ba = False
+    _track(replay, seq, t)
+    torch.cuda.synchronize()
+    return replay.tracker.ba_runs[-1]
+
+
+def window_trace(replay, seq):
+    """The second window replayed under torch.profiler: kernel launches
+    (runtime calls on the host), device kernels and their summed time
+    inside the window's ``local_ba`` range."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run = window_replay(replay, seq, LBA_FRAMES[-1])
+    events = prof.events()
+    rng = [e for e in events if e.name == "local_ba"
+           and e.device_type == DeviceType.CPU]
+    if len(rng) != 1:
+        raise AssertionError("the trace holds %d local_ba ranges" % len(rng))
+    lo, hi = rng[0].time_range.start, rng[0].time_range.end
+
+    def inside(e):
+        return lo <= e.time_range.start <= hi
+
+    launch_calls = sum(1 for e in events if e.device_type == DeviceType.CPU
+                       and "LaunchKernel" in e.name and inside(e))
+    dev = [e for e in events if e.device_type == DeviceType.CUDA
+           and inside(e) and e.name not in ("local_ba", "frame")]
+    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
+    return dict(launch_calls=launch_calls, kernels=len(kernels),
+                copies=len(dev) - len(kernels),
+                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
+                wall_ms=(hi - lo) / 1e3, run=run)
+
+
+def ba_phase(cuda_map, settings):
+    """One window BA on a perturbed copy of the final map, twice on the
+    card and once on the CPU: the card's runs identical, card and CPU
+    final costs within BA_COST_RTOL and window poses within BA_POSE_ATOL,
+    and both nearer the ground truth than the perturbed start."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.solvers import ba_builder
+    from sdpl_slam_torch.solvers import batch_ba as bb
+    from sdpl_slam_torch.utils import metrics
+
+    m = copy.deepcopy(cuda_map)
+    rng = np.random.default_rng(3)
+    for i in range(2, m.n_frames):
+        d = np.eye(4, dtype=np.float32)
+        d[:3, 3] = rng.normal(0, 0.05, 3)
+        m.camera_poses[i] = (m.camera_poses[i] @ d).astype(np.float32)
+    f0 = m.n_frames - BA_WINDOW
+    gt = m.camera_poses_gt[f0:]
+    t_before, _ = metrics.camera_rpe(m.camera_poses[f0:], gt)
+    K = Intrinsics.from_config(settings)
+    out = {}
+    for run, dev in (("cuda", "cuda"), ("cuda again", "cuda"),
+                     ("cpu", "cpu")):
+        mm = copy.deepcopy(m)
+        rb = bb.run_ba
+        before = (rb.iterations, rb.cg_iterations, rb.host_syncs)
+        t0 = time.perf_counter()
+        cost = ba_builder.partial_batch_optimization(
+            mm, K, BA_WINDOW, settings, use_lines=settings.use_lines,
+            device=dev)
+        torch.cuda.synchronize()
+        out[run] = dict(
+            cost=cost, ms=(time.perf_counter() - t0) * 1e3,
+            iterations=rb.iterations - before[0],
+            cg_iterations=rb.cg_iterations - before[1],
+            host_syncs=rb.host_syncs - before[2],
+            poses=np.stack(mm.camera_poses[f0:]),
+            rpe=metrics.camera_rpe(mm.camera_poses[f0:], gt)[0])
+    a, b, again = out["cuda"], out["cpu"], out["cuda again"]
+    same = (a["cost"] == again["cost"] and
+            a["cg_iterations"] == again["cg_iterations"] and
+            np.array_equal(a["poses"], again["poses"]))
+    pose_err = float(np.abs(a["poses"] - b["poses"]).max())
+    cost_err = abs(a["cost"] - b["cost"]) / max(abs(b["cost"]), 1e-20)
+    print("BA phase: window of %d frames, camera poses perturbed by 5 cm "
+          "(RPE %.5f m); card cost %.9g in %d LM / %d CG iterations, "
+          "%d host reads, %.1f ms (RPE %.6f m); CPU cost %.9g in %d LM / "
+          "%d CG iterations, %.1f ms (RPE %.6f m); cost rel diff %.3g "
+          "(limit %g), window pose max diff %.3g (limit %g); the card's "
+          "second run %.1f ms, %s the first" % (
+              BA_WINDOW, t_before, a["cost"], a["iterations"],
+              a["cg_iterations"], a["host_syncs"], a["ms"], a["rpe"],
+              b["cost"], b["iterations"], b["cg_iterations"], b["ms"],
+              b["rpe"], cost_err, BA_COST_RTOL, pose_err, BA_POSE_ATOL,
+              again["ms"], "identical to" if same else "DIFFERENT from"))
+    if not same:
+        raise AssertionError("BA phase: two card runs on the same input "
+                             "differ")
+    if not (np.isfinite(a["cost"]) and cost_err <= BA_COST_RTOL):
+        raise AssertionError("BA phase: card and CPU costs differ")
+    if pose_err > BA_POSE_ATOL:
+        raise AssertionError("BA phase: card and CPU window poses differ")
+    if not (a["rpe"] < t_before and b["rpe"] < t_before):
+        raise AssertionError("BA phase: the window BA did not pull the "
+                             "perturbed poses back")
+    return out
+
+
+def cpu_check(seq, first, cuda_map):
     """The first frames again on the CPU (plain kernels, same RANSAC
-    draws): poses within 1e-4, identical label streams."""
+    draws): poses within 1e-4 of the card's (``first``, as they were
+    before the first window), identical label streams."""
     import numpy as np
 
     from sdpl_slam_torch.models.system import System
-    from sdpl_slam_torch.utils.synthetic import slice_settings
 
-    system = System(slice_settings(seq.cfg), verbose=False, device="cpu")
+    system = System(_lba_settings(seq), verbose=False, device="cpu")
     for t in range(N_CPU_CHECK):
-        f = seq.frame(t)
-        system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
-                          f.obj_rows, t * 0.1, N_FRAMES,
-                          line_detections=f.lines)
+        _track(system, seq, t)
     m = system.map
-    err = max(float(np.abs(a - b).max()) for a, b in
-              zip(m.camera_poses, cuda_map.camera_poses[:N_CPU_CHECK]))
+    err = max(float(np.abs(a - b).max())
+              for a, b in zip(m.camera_poses, first))
     if err > 1e-4:
         raise AssertionError("card vs CPU camera poses differ by %g" % err)
     if m.rm_labels != cuda_map.rm_labels[:N_CPU_CHECK - 1]:
@@ -383,22 +539,52 @@ def main():
 
     with tempfile.TemporaryDirectory() as out_dir:
         res = slice_phase(seq, out_dir)
-    fm = sorted(res["frame_ms"][1:])       # frame 0 initialises only
-    print("slice phase: %d frames, camera RPE %.6f m / %.5f deg, %d object "
-          "motions" % (N_FRAMES, res["t_err"], res["r_err"], res["n_obj"]))
-    print("  per-frame ms: median %.2f (frames 1-%d), first %.2f, all %s" % (
-        fm[len(fm) // 2], N_FRAMES - 1, res["frame_ms"][0],
-        [round(x, 2) for x in res["frame_ms"]]))
+    # frame 0 initialises only; the window frames carry a BA
+    fm = sorted(x for t, x in enumerate(res["frame_ms"])
+                if t and t not in LBA_FRAMES)
+    print("slice phase: %d frames with the window BA (window 20, overlap 4) "
+          "and the global BA; %d object motions" % (N_FRAMES, res["n_obj"]))
+    for name, (t_err, r_err) in res["rpe"].items():
+        print("  camera RPE, %s poses: %.6f m / %.5f deg" % (name, t_err,
+                                                             r_err))
+    print("  tracking ms per frame: median %.2f over the %d frames without "
+          "a BA (frames 1-%d but %s); all %s" % (
+              fm[len(fm) // 2], len(fm), N_FRAMES - 1, LBA_FRAMES,
+              [round(x, 2) for x in res["frame_ms"]]))
     slots = np.median(np.asarray(res["system"].map.frame_times[1:]), axis=0)
     print("  host-clock slots, median ms (prep+detect, solve, grouping, "
           "commit, renew): %s" % " ".join("%.2f" % x for x in slots))
+    for r in res["ba_runs"]:
+        print("  %s BA at frame %d: %.1f ms, %d LM iterations, %d CG "
+              "iterations, %d BA host reads" % (
+                  r["kind"], r["frame"], r["ms"], r["iterations"],
+                  r["cg_iterations"], r["host_syncs"]))
     print("  FAST kernel launches %d (%d per frame), LM host syncs %d, "
           "peak device memory %.1f MiB" % (
               res["launches"], res["launches"] // N_FRAMES, res["syncs"],
               res["peak"] / 2 ** 20))
-    err = cpu_check(seq, res["system"].map)
+    warm = window_replay(res["replays"][LBA_FRAMES[0]], seq, LBA_FRAMES[0])
+    first = res["ba_runs"][0]
+    print("  first window replayed (the BA path now warm): %.1f ms, %d LM "
+          "iterations, %d CG iterations, %d BA host reads (the run's own: "
+          "%d / %d / %d)" % (
+              warm["ms"], warm["iterations"], warm["cg_iterations"],
+              warm["host_syncs"], first["iterations"],
+              first["cg_iterations"], first["host_syncs"]))
+    tr = window_trace(res["replays"][LBA_FRAMES[-1]], seq)
+    run = tr["run"]
+    print("  second window replayed under torch.profiler: %.1f ms wall, "
+          "%d LM / %d CG iterations, %d kernel launches (runtime calls), "
+          "%d device kernels summing %.2f ms (device busy %.1f %% of the "
+          "window), %d copies; %.1f launches per CG iteration" % (
+              tr["wall_ms"], run["iterations"], run["cg_iterations"],
+              tr["launch_calls"], tr["kernels"], tr["busy_ms"],
+              100 * tr["busy_ms"] / tr["wall_ms"], tr["copies"],
+              tr["launch_calls"] / max(run["cg_iterations"], 1)))
+    err = cpu_check(seq, res["first"], res["system"].map)
     print("reference check: %d frames on the CPU, max camera pose "
           "difference %g" % (N_CPU_CHECK, err))
+    ba_phase(res["system"].map, res["system"].settings)
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",

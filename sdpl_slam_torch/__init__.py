@@ -6,7 +6,8 @@ Layout mirrors the JAX package so each module's counterpart is easy to find:
 
 - ``ops``      : Lie-group / projective / line geometry, FAST pyramid (with
                  the CUDA FAST-9/16 score kernel), RANSAC init.
-- ``solvers``  : the batched joint flow+pose LM.
+- ``solvers``  : the batched joint flow+pose LM; batch BA (the window and
+                 the full-sequence LM with block-Jacobi CG).
 - ``models``   : Frame ops, host-side selections, Map, Tracking, System.
 - ``io``       : result writers and the native host-I/O bindings.
 - ``utils``    : Settings, metrics, plotting, the numpy synthetic sequence

@@ -14,8 +14,8 @@ from ..ops import geometry, lie
 from ..ops.geometry import Intrinsics
 
 
-def grid_sample_uv(height: int, width: int, n_points: int = 3000,
-                   device="cpu") -> torch.Tensor:
+def grid_sample_uv(height: int, width: int, n_points: int = 3000, *,
+                   device) -> torch.Tensor:
     """Uniform integral pixel lattice, the ``SampleKeyPoints`` equivalent
     (reference Frame.cc:1494-1562: 3000 points on a 20x20 grid)."""
     n = int(round(n_points ** 0.5))

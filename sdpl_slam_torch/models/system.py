@@ -16,6 +16,7 @@ import torch
 from ..io import writers
 from ..utils import metrics
 from ..utils.config import KITTI, RGBD, Settings, load_settings
+from ..utils.device import checked_device
 from .tracking import Tracking, check_supported
 
 BANNER = (
@@ -37,11 +38,7 @@ class System:
         if sensor != RGBD:
             raise ValueError("only the RGBD sensor mode is implemented "
                              "(reference guards identically, System.cc:55)")
-        dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("System(device=%r): no CUDA device is "
-                               "available; pass device='cpu' to run on the "
-                               "CPU" % (device,))
+        dev = checked_device(device, "System")
         check_supported(settings)
         if verbose:
             print(BANNER)

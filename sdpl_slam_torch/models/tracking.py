@@ -14,6 +14,9 @@ path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
     flow+motion LMs (Optimizer.cc:7603) batched over objects: _solve_frame
     on the device, one host copy of its outputs per frame
     RenewFrameInfo (:3959), map appends (:1605-1786) on the host
+  batch optimisation triggers (:1793-1884): the window BA
+    (``partial_batch_optimization``) at the reference cadence and the full
+    BA (``full_batch_optimization``) at the stop frame, on ``self.device``
 
 Per-frame tensors live on ``self.device``; host bookkeeping stays numpy,
 as in the JAX package.  Fixed capacities come from the reference's caps
@@ -21,11 +24,11 @@ as in the JAX package.  Fixed capacities come from the reference's caps
 object).
 
 Not in this package yet, and refused by :func:`check_supported` rather
-than run differently: local and global batch BA, the in-loop line
-detector (segments come in through ``line_detections=``), the non-joint
-solver, and the resident / chained / pipelined modes of the JAX package.
-The port runs each frame synchronously; the JAX package's own tests show
-its pipelining changes no result.
+than run differently: the dense-Schur BA step (``ba_schur``), the in-loop
+line detector (segments come in through ``line_detections=``), the
+non-joint solver, and the resident / chained / pipelined modes of the JAX
+package.  The port runs each frame synchronously; the JAX package's own
+tests show its pipelining changes no result.
 """
 
 from __future__ import annotations
@@ -41,8 +44,11 @@ from ..io import native as _native
 from ..ops import fast as fast_ops
 from ..ops import geometry, lie, ransac
 from ..ops.geometry import Intrinsics
+from ..solvers import ba_builder
+from ..solvers import batch_ba as bb
 from ..solvers import frame_solvers as fs
 from ..utils.config import KITTI, OMD, Settings
+from ..utils.device import checked_device
 from . import frame as fr
 from . import frame_host as fh
 from .map_state import MapState
@@ -50,20 +56,24 @@ from .map_state import MapState
 _EYE4 = np.eye(4, dtype=np.float32)
 
 
+def _global_ba_on(cfg: Settings) -> bool:
+    """``run_global_ba``, or, when it is None, KITTI data (Tracking.cc:1870)."""
+    return (cfg.run_global_ba if cfg.run_global_ba is not None
+            else cfg.choose_data == KITTI)
+
+
 def check_supported(cfg: Settings) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for settings
     this package cannot run yet; it never runs them differently."""
-    gba_fires = (cfg.run_global_ba if cfg.run_global_ba is not None
-                 else cfg.choose_data == KITTI)
     refused = [
         (cfg.resident_tracking, "resident_tracking (ROADMAP A10)"),
         (cfg.chained_tracking, "chained_tracking (ROADMAP A14)"),
         (cfg.pipelined_tracking,
          "pipelined_tracking (ROADMAP A5: the port runs synchronously; "
          "set pipelined_tracking=False)"),
-        (cfg.run_local_ba, "run_local_ba (ROADMAP A8; set run_local_ba=False)"),
-        (gba_fires, "run_global_ba, which fires by default on KITTI "
-                    "(ROADMAP A8; set run_global_ba=False)"),
+        (cfg.ba_schur and (cfg.run_local_ba or _global_ba_on(cfg)),
+         "ba_schur=True with a batch BA on (ROADMAP A12, the dense-Schur "
+         "step; set ba_schur=False)"),
         (not cfg.use_joint_optimization,
          "use_joint_optimization=False (ROADMAP A3, solve_pose_only)"),
     ]
@@ -174,9 +184,9 @@ class Tracking:
     """Host orchestrator holding the per-sequence state; the solvers and
     the FAST pyramid run on ``device``."""
 
-    def __init__(self, settings: Settings, device="cpu"):
+    def __init__(self, settings: Settings, device="cuda"):
         self.cfg = settings
-        self.device = torch.device(device)
+        self.device = checked_device(device, "Tracking")
         self.K = Intrinsics.from_config(settings)
         # capacities
         self.NS = int(settings.max_track_point_bg)       # static points
@@ -208,6 +218,9 @@ class Tracking:
         self._oline_label = np.full(self.NLO, -2, np.int32)
         self._grid_cache = None
         self.lm_host_syncs = 0                           # LM loop-exit reads
+        # one dict per batch BA run: kind ("local" / "global"), frame, wall
+        # ms, LM and CG iterations, host reads (batch_ba.run_ba's counters)
+        self.ba_runs: List[dict] = []
 
     def _ransac_uniforms(self, f_id: int, lane: int, n_hyp: int) -> torch.Tensor:
         """(n_hyp, 3) uniforms in [0, 1) for one RANSAC problem: lane 0 is
@@ -352,7 +365,7 @@ class Tracking:
             # constant per image size: cached
             if self._grid_cache is None or self._grid_cache[0] != (h, w):
                 self._grid_cache = ((h, w), fr.grid_sample_uv(
-                    h, w, n_points=self.N_CAND).numpy())
+                    h, w, n_points=self.N_CAND, device="cpu").numpy())
             cand = self._grid_cache[1]
             cand_valid = np.ones(self.N_CAND, bool)
 
@@ -514,7 +527,40 @@ class Tracking:
         }
         self._push_map(new_state, pose_np, pose_gt, prev_pose_gt,
                        self.velocity, obj_meta, timing)
+
+        # ===== batch optimisation triggers (Tracking.cc:1793-1884) =====
+        f_id = self.f_id
+        if (cfg.run_local_ba
+                and (f_id - cfg.overlap_size + 1)
+                % max(cfg.window_size - cfg.overlap_size, 1) == 0
+                and f_id >= cfg.window_size - 1):
+            self.map.lba_times.append(self._batch_ba(
+                "local", ba_builder.partial_batch_optimization,
+                cfg.window_size))
+            # the next frame starts from the refined pose
+            pose_np = np.linalg.inv(self.map.camera_poses[-1]).astype(
+                np.float32)
+            self.last["pose"] = pose_np
+        if _global_ba_on(cfg) and f_id == stop_frame:
+            self._batch_ba("global", ba_builder.full_batch_optimization)
         return pose_np
+
+    def _batch_ba(self, kind: str, entry, *args) -> float:
+        """Run one batch BA entry point on the map; log it in ``ba_runs``
+        and return its wall ms.  The run is a ``<kind>_ba`` profiler range."""
+        rb = bb.run_ba
+        before = (rb.iterations, rb.cg_iterations, rb.host_syncs)
+        t0 = time.perf_counter()
+        with torch.profiler.record_function(kind + "_ba"):
+            entry(self.map, self.K, *args, self.cfg,
+                  use_lines=self.cfg.use_lines, device=self.device)
+        ms = (time.perf_counter() - t0) * 1e3
+        self.ba_runs.append(dict(
+            kind=kind, frame=self.f_id, ms=ms,
+            iterations=rb.iterations - before[0],
+            cg_iterations=rb.cg_iterations - before[1],
+            host_syncs=rb.host_syncs - before[2]))
+        return ms
 
     # ------------------------------------------------------------------
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:

@@ -27,6 +27,18 @@ def hat(w: torch.Tensor) -> torch.Tensor:
     ], -2)
 
 
+def vee(W: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`hat`: (..., 3, 3) -> (..., 3)."""
+    return torch.stack([W[..., 2, 1], W[..., 0, 2], W[..., 1, 0]], -1)
+
+
+def clip(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """``jnp.clip``: a maximum, then a minimum.  At a bound the derivative
+    is 1/2, as JAX's is; ``torch.clamp`` would pass all of it."""
+    return torch.minimum(torch.maximum(x, torch.full_like(x, lo)),
+                         torch.full_like(x, hi))
+
+
 def _safe_norm(w: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(w * w, -1) + 1e-24)
 
@@ -57,6 +69,28 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     return _eye(3, w) + _sinc(theta) * W + _cosc(theta) * (W @ W)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Log map of SO(3), (..., 3, 3) -> (..., 3); valid for angles < pi.
+    The trace and cos(theta) are clipped, and a Taylor branch takes
+    theta < 1e-5, exactly as in the JAX package."""
+    trace = clip(R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2], -1.0, 3.0)
+    cos_t = clip(0.5 * (trace - 1.0), -1.0 + 1e-7, 1.0 - 1e-7)
+    theta = torch.arccos(cos_t)
+    w_hat = 0.5 * (R - R.transpose(-1, -2))
+    small = theta < 1e-5
+    safe_t = torch.where(small, torch.ones_like(theta), theta)
+    scale = torch.where(small, 1.0 + theta * theta / 6.0,
+                        safe_t / torch.sin(safe_t))
+    return scale[..., None] * vee(w_hat)
+
+
+def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
+    """Rotation angle in degrees by the clamped-trace acos formula of the
+    reference metrics (Tracking.cc:5026-5040)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    return torch.rad2deg(torch.arccos(clip(0.5 * (trace - 1.0), -1.0, 1.0)))
+
+
 def _left_jacobian_v(w: torch.Tensor) -> torch.Tensor:
     """The V matrix in se(3) exp: t = V @ v."""
     theta = _safe_norm(w)[..., None, None]
@@ -77,6 +111,14 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     T[..., :3, 3] = (_left_jacobian_v(w) @ v[..., None])[..., 0]
     T[..., 3, 3] = 1.0
     return T
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """Log map SE(3) -> se(3): (..., 4, 4) -> (..., 6) = [omega, v].
+    ``solve_ex`` rather than ``solve``: no error check, so no device sync."""
+    w = so3_log(T[..., :3, :3])
+    v = torch.linalg.solve_ex(_left_jacobian_v(w), T[..., :3, 3])[0]
+    return torch.cat([w, v], -1)
 
 
 def se3_inv(T: torch.Tensor) -> torch.Tensor:
@@ -121,3 +163,13 @@ def transform_point(T: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     R = T[..., :3, :3]
     t = T[..., :3, 3]
     return x @ R.transpose(-1, -2) + t.unsqueeze(-2)
+
+
+def line_transform_6x6(T: torch.Tensor) -> torch.Tensor:
+    """The 6x6 Pluecker-line motion matrix [[R, hat(t) R], [0, R]] of poses
+    (..., 4, 4), acting on L = [n, d] (the reference's
+    ``LineTransformation``, edge_se3_ortho_line.cpp:100-109)."""
+    R = T[..., :3, :3]
+    top = torch.cat([R, hat(T[..., :3, 3]) @ R], -1)
+    bot = torch.cat([torch.zeros_like(R), R], -1)
+    return torch.cat([top, bot], -2)

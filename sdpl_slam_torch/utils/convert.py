@@ -4,7 +4,8 @@ There are no weights: what a run carries is its ``Settings`` and the
 tracker's per-sequence state -- the fields ``sdpl_slam_tpu``'s
 ``System.save_checkpoint`` pickles.  With these a JAX run can be stopped
 mid-sequence and continued here, and both can take the same next frame
-from the same state.  Nothing here imports JAX: objects are read by
+from the same state.  A JAX batch-BA graph converts too, so both packages
+can solve the same graph.  Nothing here imports JAX: objects are read by
 attribute, arrays through ``np.asarray``.
 """
 
@@ -14,8 +15,10 @@ import copy
 import dataclasses
 
 import numpy as np
+import torch
 
 from ..models.map_state import MapState
+from ..solvers.batch_ba import BAGraph
 from .config import Settings
 
 TRACKER_FIELDS = ("f_id", "max_id", "velocity", "origin_inv", "last",
@@ -83,3 +86,19 @@ def tracker_state_from_jax(tracker, state: dict) -> None:
     for f in dataclasses.fields(MapState):
         setattr(m, f.name, _host(getattr(src, f.name)))
     tracker.map = m
+
+
+def graph_from_jax(jax_graph, device):
+    """A ``sdpl_slam_tpu`` ``BAGraph`` (padded; its padding rows flagged
+    invalid) as this package's ``BAGraph`` on ``device``, field by field:
+    floats keep their dtype, indices become int64."""
+    out = {}
+    for name in BAGraph._fields:
+        a = np.array(getattr(jax_graph, name))
+        if name == "prior_frame":
+            out[name] = int(a)
+            continue
+        if np.issubdtype(a.dtype, np.integer):
+            a = a.astype(np.int64)
+        out[name] = torch.as_tensor(a, device=device)
+    return BAGraph(**out)

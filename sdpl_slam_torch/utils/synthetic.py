@@ -423,3 +423,14 @@ def slice_settings(cfg: SynthConfig) -> "Settings":
     s.run_local_ba = False
     s.run_global_ba = False
     return s
+
+
+def lba_settings(cfg: SynthConfig) -> "Settings":
+    """The JAX bench's configuration (``bench.py:251-259`` without chained
+    mode): :func:`slice_settings` with the window BA on at the reference
+    cadence, window 20 and overlap 4."""
+    s = slice_settings(cfg)
+    s.run_local_ba = True
+    s.window_size = 20
+    s.overlap_size = 4
+    return s

@@ -1,6 +1,6 @@
 """sdpl_slam_torch on a CUDA card: the FAST kernel against its plain
-version, and the tracking slice on the card against the same slice on the
-CPU.  Skipped where there is no card.  This file imports no JAX, so it
+version, the tracking slice on the card against the same slice on the
+CPU, and the window BA on the card run twice.  Skipped where there is no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -117,3 +117,36 @@ def test_slice_on_card_matches_cpu(cuda, seq):
     for a, b in zip(maps["cuda"].camera_poses, maps["cpu"].camera_poses):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert maps["cuda"].rm_labels == maps["cpu"].rm_labels
+
+
+@pytest.mark.gpu
+def test_window_ba_on_card_is_deterministic(cuda, seq):
+    """The window BA on the same map twice on the card: the scatter-adds
+    sum in a fixed order, so cost, iterations and poses are identical."""
+    import copy
+
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.solvers import ba_builder
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    s = System(slice_settings(seq.cfg), verbose=False, device="cuda")
+    for t in range(3):
+        f = seq.frame(t)
+        s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
+                     t * 0.1, 3, line_detections=f.lines)
+    K = Intrinsics.from_config(s.settings)
+    runs = []
+    for _ in range(2):
+        m = copy.deepcopy(s.map)
+        before = (bb.run_ba.iterations, bb.run_ba.cg_iterations)
+        cost = ba_builder.partial_batch_optimization(
+            m, K, 3, s.settings, use_lines=s.settings.use_lines,
+            device="cuda")
+        runs.append((cost, bb.run_ba.iterations - before[0],
+                     bb.run_ba.cg_iterations - before[1],
+                     np.stack(m.camera_poses), np.stack(m.stat_3d[-1])))
+    (c0, i0, g0, p0, x0), (c1, i1, g1, p1, x1) = runs
+    assert np.isfinite(c0) and i0 > 0
+    assert (c0, i0, g0) == (c1, i1, g1)
+    np.testing.assert_array_equal(p0, p1)
+    np.testing.assert_array_equal(x0, x1)

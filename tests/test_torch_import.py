@@ -9,8 +9,13 @@ from pathlib import Path
 import pytest
 import torch
 
+from sdpl_slam_torch.models.map_state import MapState
 from sdpl_slam_torch.models.system import System
-from sdpl_slam_torch.utils.synthetic import SynthConfig, slice_settings
+from sdpl_slam_torch.models.tracking import Tracking
+from sdpl_slam_torch.ops.geometry import Intrinsics
+from sdpl_slam_torch.solvers import ba_builder
+from sdpl_slam_torch.utils.synthetic import (SynthConfig, lba_settings,
+                                             slice_settings)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -19,6 +24,7 @@ SLICE_MODULES = (
     "sdpl_slam_torch.ops.lie", "sdpl_slam_torch.ops.geometry",
     "sdpl_slam_torch.ops.fast", "sdpl_slam_torch.ops.ransac",
     "sdpl_slam_torch.solvers.frame_solvers",
+    "sdpl_slam_torch.solvers.batch_ba", "sdpl_slam_torch.solvers.ba_builder",
     "sdpl_slam_torch.models.frame", "sdpl_slam_torch.models.frame_host",
     "sdpl_slam_torch.models.map_state", "sdpl_slam_torch.models.tracklets",
     "sdpl_slam_torch.models.tracking", "sdpl_slam_torch.models.system",
@@ -26,7 +32,7 @@ SLICE_MODULES = (
     "sdpl_slam_torch.utils.config", "sdpl_slam_torch.utils.metrics",
     "sdpl_slam_torch.utils.plotting", "sdpl_slam_torch.utils.traj_canvas",
     "sdpl_slam_torch.utils.synthetic", "sdpl_slam_torch.utils.convert",
-    "sdpl_slam_torch.utils.cuda_build",
+    "sdpl_slam_torch.utils.cuda_build", "sdpl_slam_torch.utils.device",
 )
 
 
@@ -65,13 +71,39 @@ def test_cpu_device_is_explicit():
     assert s.device == torch.device("cpu")
 
 
+def test_tracking_and_ba_default_to_the_card():
+    """``Tracking`` and both BA entry points run on the card unless the
+    caller asks for the CPU, and raise without one."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    s = _settings()
+    K = Intrinsics.from_config(s)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Tracking(s)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ba_builder.full_batch_optimization(MapState(), K, s)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ba_builder.partial_batch_optimization(MapState(), K, 20, s)
+    assert Tracking(s, device="cpu").device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("global_ba", [False, True, None])
+def test_batch_ba_settings_accepted(global_ba):
+    """The bench's window BA (``lba_settings``) and the global BA, set or
+    by default on KITTI, run rather than raise."""
+    s = lba_settings(SynthConfig(n_frames=2))
+    s.run_global_ba = global_ba
+    s.choose_data = 2                      # KITTI: None fires the global BA
+    assert System(s, verbose=False, device="cpu").settings.run_local_ba
+
+
 @pytest.mark.parametrize("field,value,item", [
     ("resident_tracking", True, "A10"),
     ("chained_tracking", True, "A14"),
     ("pipelined_tracking", True, "A5"),
-    ("run_local_ba", True, "A8"),
-    ("run_global_ba", True, "A8"),
-    ("run_global_ba", None, "A8"),        # None fires on KITTI
+    ("run_local_ba", True, "A12"),        # with ba_schur = True
+    ("run_global_ba", True, "A12"),
+    ("run_global_ba", None, "A12"),       # None fires on KITTI
     ("use_joint_optimization", False, "A3"),
 ])
 def test_unsupported_settings_raise(field, value, item):
@@ -79,8 +111,17 @@ def test_unsupported_settings_raise(field, value, item):
     setattr(s, field, value)
     if field == "run_global_ba" and value is None:
         s.choose_data = 2                  # KITTI
+    if item == "A12":
+        s.ba_schur = True                  # the dense-Schur BA step
     with pytest.raises(NotImplementedError, match=item):
         System(s, verbose=False, device="cpu")
+
+
+def test_schur_without_batch_ba_runs():
+    """``ba_schur`` only matters where a batch BA fires."""
+    s = _settings()
+    s.ba_schur = True
+    System(s, verbose=False, device="cpu")
 
 
 def test_lines_without_detections_raise():
