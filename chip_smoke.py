@@ -10,20 +10,34 @@
    bit for bit.  Device time from CUDA events around 200 back-to-back
    launches, warm and with the L2 cache flushed; wall time of one call;
    the bytes/operations bound of this run's data and the share reached.
-3. Slice phase: 36 KITTI-scale synthetic frames (the JAX bench's
-   sequence: 1242x375, 2 moving objects, 0.2 px flow noise, reference
-   caps, FAST in the loop, lines injected) through
-   ``System(settings, device="cuda").track_rgbd`` and ``save_results``,
-   with the bench's window BA (window 20, overlap 4: windows at frames 19
-   and 35) and the global BA at the last frame.  Checks that every frame
-   ran the FAST kernel (one launch a frame for the whole pyramid), that
-   both windows and the global BA ran, that the 7 result files exist,
-   that the camera RPE of the primary and of the refined poses is under
-   the bench's GT gates (t < 5 mm, r < 0.1 deg), and that the first frames
-   agree with the same slice run on the CPU.  The second window is
-   replayed from a copy of the system under torch.profiler to count its
-   kernel launches and device time.
-4. BA phase: the final map with its camera poses perturbed, one window BA
+3. Lines phase: ``ops.lines.detect_lines`` on two KITTI-size grey frames
+   in both modes (0 LSD-style, 1 EDLines-style) on the card against the
+   same call on the CPU (set-level match of the segments, gated), its
+   device and wall time, its kernel launches under torch.profiler, and
+   its recall of the generator's structure lines.  Fails if the detector
+   finds nothing on an image that has strokes.
+4. Disk phase, the main path at full width and depth: 37 KITTI-scale
+   synthetic frames (the JAX bench's sequence: 1242x375, 2 moving
+   objects, 0.2 px flow noise) are written to a temporary directory in
+   the reference dataset layout by ``examples/make_demo_sequence_torch``'s
+   writer, with a settings.yaml of the bench's configuration (reference
+   caps, window BA 20 / 4, global BA).  36 of them are tracked as
+   ``examples/run_sequence_torch.py`` tracks them: ``load_sequence``,
+   ``FramePrefetcher``, ``System(settings.yaml)`` on the card, nothing
+   injected (FAST and the line detector in the loop), windows at frames
+   19 and 35 and the global BA at 35, ``save_results``.  Checks: one FAST
+   launch and one line-detector run per frame, both windows and the
+   global BA ran, the 7 result files parse, camera RPE of the primary and
+   refined poses under the GT gates, static lines tracked in the steady
+   frames, and the first frames agree with the same files run on the
+   CPU.  The second window is replayed from a copy of the system under
+   torch.profiler to count its kernel launches and device time.
+5. Injected phase (the path of the earlier slices, cut to 10 frames): the
+   generator's frames straight into ``System(settings)`` with lines
+   injected and no BA.
+6. Non-joint phase: 6 frames with ``use_joint_optimization = False``
+   (the pose-only camera solver), lines injected.
+7. BA phase: the final map with its camera poses perturbed, one window BA
    (20 frames) twice on the card and once on the CPU: the card's two runs
    must be identical (its scatter-adds sum in a fixed order), and card and
    CPU must agree on the final cost and the window poses (tolerances
@@ -34,20 +48,49 @@ output are the kernels' JSON line and ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
+import importlib.util
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
 
-N_FRAMES = 36          # tracked on the card
+N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
+N_INJECTED = 10        # frames of the injected-lines path (no BA)
+N_NONJOINT = 6         # frames of the non-joint path
+# Disk path gates.  The files store depth in 1 cm steps; on the first 12
+# of them on the CPU the JAX package reaches a camera RPE of 3.29 mm /
+# 0.0158 deg and this package 1.11 mm / 0.0142 deg (1.01 mm / 0.0157 deg
+# over all 36 without a BA), so the bench's GT gates hold as they are.
+RPE_T_GATE, RPE_R_GATE = 0.005, 0.1
+# static lines tracked per frame from frame 5 on: the CPU run of the same
+# files keeps 9 to 42 (3 to 11 in the first frames)
+MIN_STATIC_LINES, STEADY_FROM = 5, 5
+CPU_POSE_ATOL = 1e-4   # first frames, card vs CPU camera poses
+# lines phase: segments on the card vs on the CPU.  Both endpoints within
+# LINE_MATCH_PX for at least LINE_MATCH_FRAC of either set, and at least
+# LINE_ALONG_FRAC of either set lying along a segment of the other.  The
+# card's float32 sums run in another order than the CPU's, and the
+# generator's strokes sit on integer pixels, where the detector's rounded
+# lookups and threshold compares tie: a few segments per image come out
+# split, merged or extended differently (PERF.md).  Recall of the
+# generator's structure lines: 0.81 to 1.0 on the CPU.
+LINE_MATCH_PX, LINE_MATCH_FRAC = 0.5, 0.8
+LINE_ALONG_FRAC, LINE_RECALL_MIN = 0.9, 0.6
+NONJOINT_T_GATE, NONJOINT_R_GATE = 0.02, 0.2   # tests/test_nonjoint_path.py
 BA_WINDOW = 20
-# BA phase: card vs CPU final cost; sound runs measured 7e-8 to 1.0e-4
+# BA phase: card vs CPU final cost.  The window's LM stops when a step
+# gains under 1e-3 of the cost (ba_gain_threshold_partial), and two sound
+# float32 runs part by rounding and stop some steps apart: the limit is 10
+# times that rule's resolution.  Measured 4.5e-3 on the map tracked from
+# disk (10 against 14 LM iterations; run to a gain of 1e-5 both reach
+# 9.1e-4), 7e-8 to 1.0e-4 on the exact-depth map of the earlier slice
 # (PERF.md)
-BA_COST_RTOL = 1e-3
+BA_COST_RTOL = 1e-2
 BA_POSE_ATOL = 1e-3    # BA phase: card vs CPU window poses (m, rotation)
 TIMING_REPS = 25       # wall: median of single calls
 DEVICE_REPS = 200      # device: back-to-back launches per event pair
@@ -256,91 +299,334 @@ def _lba_settings(seq):
     return s
 
 
-def _track(system, seq, t):
-    f = seq.frame(t)
-    return system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
-                             f.obj_rows, t * 0.1, N_FRAMES,
-                             line_detections=f.lines)
+def _example(name):
+    """A script of ``examples/`` beside this file, as a module."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", name + ".py")
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def slice_phase(seq, out_dir):
-    """The port's main path on the card; returns its measurements and
-    copies of the system taken just before each window's frame."""
+def _compact(seg):
+    import torch
+
+    packed = torch.cat([seg.uv4, seg.valid[:, None].float()], 1).cpu().numpy()
+    return packed[packed[:, 4] > 0.5, :4]
+
+
+def _match_frac(a, b, tol):
+    """Share of segments of ``a`` with a segment of ``b`` whose endpoints
+    both lie within ``tol`` px, in either order (a segment is an unordered
+    pair: a tile's principal direction can come out with either sign)."""
+    import numpy as np
+
+    if len(a) == 0:
+        return 1.0
+    if len(b) == 0:
+        return 0.0
+    best = np.inf
+    for other in (b, b[:, [2, 3, 0, 1]]):
+        d = (a[:, None, :] - other[None, :, :]).reshape(len(a), len(b), 2, 2)
+        best = np.minimum(best, np.sqrt((d ** 2).sum(-1)).max(-1))
+    return float((best.min(1) < tol).mean())
+
+
+def _lies_along(a, b, ang_tol=math.radians(10), lat_tol=3.0, min_ov=0.3):
+    """The segment match of ``tests/test_lsd_oracle.py``: directions
+    within 10 deg, ``a``'s midpoint within 3 px of ``b``'s line, over 30 %
+    of ``a``'s length inside ``b``'s extent."""
+    def ang(s):
+        return math.atan2(s[3] - s[1], s[2] - s[0])
+
+    dx, dy = b[2] - b[0], b[3] - b[1]
+    n = max(math.hypot(dx, dy), 1e-9)
+    d = abs(ang(a) - ang(b)) % math.pi
+    if min(d, math.pi - d) > ang_tol:
+        return False
+    mid = ((a[0] + a[2]) / 2, (a[1] + a[3]) / 2)
+    if abs((mid[0] - b[0]) * dy - (mid[1] - b[1]) * dx) / n > lat_tol:
+        return False
+    ta = sorted(((a[k] - b[0]) * dx + (a[k + 1] - b[1]) * dy) / n
+                for k in (0, 2))
+    inside = max(min(ta[1], n) - max(ta[0], 0.0), 0.0)
+    return inside / max(math.hypot(a[2] - a[0], a[3] - a[1]), 1e-9) > min_ov
+
+
+def _along_frac(a, b):
+    """Share of segments of ``a`` that lie along some segment of ``b`` or
+    have one lying along them."""
+    return sum(1 for x in a if any(_lies_along(x, y) or _lies_along(y, x)
+                                   for y in b)) / max(len(a), 1)
+
+
+def lines_phase(seq, line_cfg):
+    """``detect_lines`` on the card against the CPU, both modes, on two
+    frames; returns one row of figures per (frame, mode) and the gates
+    that failed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdpl_slam_torch.ops import lines
+
+    rows, failures = [], []
+    for t in (0, 20):
+        f = seq.frame(t)
+        if f.lines is None or not len(f.lines):
+            raise AssertionError("frame %d has no structure lines" % t)
+        host = torch.from_numpy(f.gray)
+        card = host.cuda()
+        for mode in (0, 1):
+            cfg = line_cfg._replace(mode=mode)
+
+            def run():
+                return lines.detect_lines(card, cfg)
+
+            on_card = _compact(run())
+            on_cpu = _compact(lines.detect_lines(host, cfg))
+            if not len(on_card):
+                raise AssertionError(
+                    "frame %d mode %d: the detector found no segment on an "
+                    "image with %d strokes" % (t, mode, len(f.lines)))
+            fwd = _match_frac(on_card, on_cpu, LINE_MATCH_PX)
+            back = _match_frac(on_cpu, on_card, LINE_MATCH_PX)
+            along = min(_along_frac(on_card, on_cpu),
+                        _along_frac(on_cpu, on_card))
+            recall = _along_frac(f.lines, on_card)
+            if min(fwd, back) < LINE_MATCH_FRAC:
+                failures.append(
+                    "frame %d mode %d: card and CPU segments match %.3f / "
+                    "%.3f, under %.2f" % (t, mode, fwd, back, LINE_MATCH_FRAC))
+            if along < LINE_ALONG_FRAC:
+                failures.append(
+                    "frame %d mode %d: only %.3f of the card's and the "
+                    "CPU's segments lie along one another" % (t, mode, along))
+            if recall < LINE_RECALL_MIN:
+                failures.append("frame %d mode %d: recall %.3f of the "
+                                "structure lines" % (t, mode, recall))
+            walls = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                run()
+                torch.cuda.synchronize()
+            events = prof.events()
+            launches = sum(1 for e in events
+                           if e.device_type == DeviceType.CPU
+                           and "LaunchKernel" in e.name)
+            dev = [e for e in events if e.device_type == DeviceType.CUDA]
+            rows.append(dict(
+                frame=t, mode=mode, strokes=len(f.lines), card=len(on_card),
+                cpu=len(on_cpu), fwd=fwd, back=back, along=along,
+                recall=recall,
+                wall_ms=sorted(walls)[2], launches=launches,
+                kernels=len(dev),
+                busy_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3))
+    return rows, failures
+
+
+def write_disk_sequence(seq, root):
+    """``seq``'s frames under ``root`` in the reference dataset layout,
+    with the bench's configuration as its settings.yaml; returns the
+    settings the yaml must load back to."""
+    import dataclasses
+
+    from sdpl_slam_torch.utils import config
+
+    mk = _example("make_demo_sequence_torch")
+    want = _lba_settings(seq)
+    want.depth_map_factor = mk.DEPTH_FACTOR
+    mk.write_sequence(root, seq, N_FRAMES + 1, config.format_overrides(want))
+    got = config.load_settings(os.path.join(root, "settings.yaml"))
+    if dataclasses.asdict(got) != dataclasses.asdict(want):
+        raise AssertionError("settings.yaml does not load back to the "
+                             "bench's configuration")
+    return want
+
+
+def _track_loaded(system, loaded, i, frame, nxt=None, nxt2=None):
+    gray, depth, flow, mask = frame
+    return system.track_rgbd(
+        gray, depth, flow, mask, loaded.gt_pose(i), loaded.gt_obj_poses(i),
+        float(loaded.timestamps[i]), loaded.n_frames,
+        next_image=None if nxt is None else nxt[0],
+        next_image2=None if nxt2 is None else nxt2[0])
+
+
+RESULT_FILES = ("obj_mot_stereo_new.txt", "obj_mot_stereo_rf_new.txt",
+                "obj_mot_gt.txt", "obj_centre.txt", "initial_stereo_new.txt",
+                "refined_stereo_new.txt", "cam_pose_gt_stereo.txt")
+
+
+def _check_run(system, n_frames, launches, what, t_gate, r_gate,
+               refined=True):
+    """Gates every tracked path shares: one FAST launch per frame, the
+    camera RPE under its gates, an object tracked."""
+    from sdpl_slam_torch.utils import metrics
+
+    if launches != n_frames:
+        raise AssertionError("%s: FAST kernel launched %d times for %d "
+                             "frames (one launch per frame expected)"
+                             % (what, launches, n_frames))
+    m = system.map
+    rpe = {}
+    for name, poses in (("primary", m.camera_poses),
+                        ("refined", m.camera_poses_rf))[:2 if refined else 1]:
+        t_err, r_err = metrics.camera_rpe(poses, m.camera_poses_gt)
+        rpe[name] = (t_err, r_err)
+        if not (t_err < t_gate and r_err < r_gate):
+            raise AssertionError("%s: %s camera RPE %.5f m / %.4f deg over "
+                                 "the gates %g m / %g deg"
+                                 % (what, name, t_err, r_err, t_gate, r_gate))
+    n_obj = sum(len(x) - 1 for x in m.rm_labels)
+    if n_obj == 0:
+        raise AssertionError("%s: no object was tracked" % what)
+    return rpe, n_obj
+
+
+def disk_phase(root, out_dir):
+    """The port's main path on the card: the sequence under ``root``
+    through the loader, the prefetcher and ``System(settings.yaml)`` with
+    nothing injected.  Returns its measurements and, for each window's
+    frame, a copy of the system taken just before it with the frame."""
     import copy
 
     import numpy as np
     import torch
 
+    from sdpl_slam_torch.io.dataset import load_sequence, png_decoder
+    from sdpl_slam_torch.io.prefetch import FramePrefetcher
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
-    from sdpl_slam_torch.utils import metrics
 
-    system = System(_lba_settings(seq), verbose=False, device="cuda")
+    system = System(os.path.join(root, "settings.yaml"), verbose=False)
+    if system.device.type != "cuda":
+        raise AssertionError("System(settings.yaml) is not on the card")
+    loaded = load_sequence(root)
+    if loaded.n_frames != N_FRAMES:
+        raise AssertionError("the loader sees %d frames" % loaded.n_frames)
+    load_ms = []
+
+    def load(i):
+        t0 = time.perf_counter()
+        frame = loaded.frame(i)
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+        return frame
+
     replays = {}
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
     system.tracker.lm_host_syncs = 0
-    frame_ms = []
-    for t in range(N_FRAMES):
-        if t in LBA_FRAMES:
-            replays[t] = copy.deepcopy(system)
-        t0 = time.perf_counter()
-        pose = _track(system, seq, t)
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-        if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
-            raise AssertionError("frame %d: pose not a finite 4x4" % t)
-        if t == N_CPU_CHECK - 1:           # before a window rewrites them
-            first = [p.copy() for p in system.map.camera_poses]
+    frame_ms, wait_ms = [], []
+    pf = FramePrefetcher(load, N_FRAMES, lookahead=3)
+    try:
+        frames = iter(pf)
+        for _ in range(N_FRAMES):
+            t0 = time.perf_counter()
+            i, frame = next(frames)
+            nxt, nxt2 = pf.peek(i + 1), pf.peek(i + 2)
+            wait_ms.append((time.perf_counter() - t0) * 1e3)
+            if i in LBA_FRAMES:
+                replays[i] = (copy.deepcopy(system), frame)
+            t0 = time.perf_counter()
+            pose = _track_loaded(system, loaded, i, frame, nxt, nxt2)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
+                raise AssertionError("frame %d: pose not a finite 4x4" % i)
+            if i == N_CPU_CHECK - 1:       # before a window rewrites them
+                first = [p.copy() for p in system.map.camera_poses]
+    finally:
+        pf.close()
     launches = fast.fast_score_pyramid.launches
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
 
-    if launches != N_FRAMES:
-        raise AssertionError("FAST kernel launched %d times for %d frames "
-                             "(one launch per frame expected)"
-                             % (launches, N_FRAMES))
+    rpe, n_obj = _check_run(system, N_FRAMES, launches, "disk path",
+                            RPE_T_GATE, RPE_R_GATE)
+    line_ms = system.tracker.line_detect_ms
+    if len(line_ms) != N_FRAMES:
+        raise AssertionError("the line detector ran %d times for %d frames"
+                             % (len(line_ms), N_FRAMES))
     runs = system.tracker.ba_runs
     want = [("local", f) for f in LBA_FRAMES] + [("global", N_FRAMES - 1)]
     if [(r["kind"], r["frame"]) for r in runs] != want:
         raise AssertionError("batch BA runs %s, expected %s" % (
             [(r["kind"], r["frame"]) for r in runs], want))
-    system.save_results(out_dir)
-    files = ("obj_mot_stereo_new.txt", "obj_mot_stereo_rf_new.txt",
-             "obj_mot_gt.txt", "obj_centre.txt", "initial_stereo_new.txt",
-             "refined_stereo_new.txt", "cam_pose_gt_stereo.txt")
-    missing = [n for n in files if not os.path.getsize(os.path.join(out_dir, n))]
-    if missing:
-        raise AssertionError("empty result files: %s" % missing)
     m = system.map
-    rpe = {}
-    for name, poses in (("primary", m.camera_poses),
-                        ("refined", m.camera_poses_rf)):
-        t_err, r_err = metrics.camera_rpe(poses, m.camera_poses_gt)
-        rpe[name] = (t_err, r_err)
-        if not (t_err < 0.005 and r_err < 0.1):
-            raise AssertionError("%s camera RPE %.5f m / %.4f deg over the "
-                                 "GT gates" % (name, t_err, r_err))
-    n_obj = sum(len(x) - 1 for x in m.rm_labels)
-    if n_obj == 0:
-        raise AssertionError("no object was tracked")
-    return dict(system=system, replays=replays, first=first, frame_ms=frame_ms,
-                launches=launches, syncs=syncs, peak=peak, rpe=rpe,
-                n_obj=n_obj, ba_runs=runs)
+    n_lines = [int(v.sum()) for v in m.line_valid]
+    if min(n_lines[STEADY_FROM:]) < MIN_STATIC_LINES:
+        raise AssertionError("static lines tracked per frame %s: under %d "
+                             "from frame %d on" % (n_lines, MIN_STATIC_LINES,
+                                                   STEADY_FROM))
+    system.save_results(out_dir)
+    for name in RESULT_FILES:
+        rows = np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+        if not len(rows) or not np.all(np.isfinite(rows)):
+            raise AssertionError("result file %s: empty or not finite" % name)
+        if name.startswith(("initial", "refined", "cam_pose")) and \
+                rows.shape != (N_FRAMES, 17):
+            raise AssertionError("result file %s: shape %s" % (name, rows.shape))
+    return dict(system=system, loaded=loaded, replays=replays, first=first,
+                frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
+                line_ms=line_ms, n_lines=n_lines, launches=launches,
+                syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
+                decoder=png_decoder())
 
 
-def window_replay(replay, seq, t):
+def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
+    """``n_frames`` of the generator straight into ``System(settings)`` on
+    the card, lines injected, no BA, ``over`` set on the slice's
+    settings; returns (ms per tracked frame, FAST launches, RPE)."""
+    import torch
+
+    from sdpl_slam_torch.models.system import System
+    from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.utils.synthetic import slice_settings
+
+    settings = slice_settings(seq.cfg)
+    for k, v in over.items():
+        setattr(settings, k, v)
+    system = System(settings, verbose=False, device="cuda")
+    fast.fast_score_pyramid.launches = 0
+    ms = []
+    for t in range(n_frames):
+        f = seq.frame(t)
+        t0 = time.perf_counter()
+        system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                          f.obj_rows, t * 0.1, n_frames,
+                          line_detections=f.lines)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    launches = fast.fast_score_pyramid.launches
+    if system.tracker.line_detect_ms:
+        raise AssertionError("%s: the line detector ran with lines injected"
+                             % what)
+    rpe, _ = _check_run(system, n_frames, launches, what, t_gate, r_gate,
+                        refined=False)
+    return sorted(ms[1:])[(n_frames - 1) // 2], launches, rpe["primary"]
+
+
+def window_replay(replay, loaded, t):
     """Frame ``t`` again from the copy of the system taken before it, the
     global BA off; returns the replayed window's ``ba_runs`` entry."""
     import torch
 
-    replay.tracker.cfg.run_global_ba = False
-    _track(replay, seq, t)
+    system, frame = replay
+    system.tracker.cfg.run_global_ba = False
+    _track_loaded(system, loaded, t, frame)
     torch.cuda.synchronize()
-    return replay.tracker.ba_runs[-1]
+    return system.tracker.ba_runs[-1]
 
 
-def window_trace(replay, seq):
+def window_trace(replay, loaded):
     """The second window replayed under torch.profiler: kernel launches
     (runtime calls on the host), device kernels and their summed time
     inside the window's ``local_ba`` range."""
@@ -349,7 +635,7 @@ def window_trace(replay, seq):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        run = window_replay(replay, seq, LBA_FRAMES[-1])
+        run = window_replay(replay, loaded, LBA_FRAMES[-1])
     events = prof.events()
     rng = [e for e in events if e.name == "local_ba"
            and e.device_type == DeviceType.CPU]
@@ -444,21 +730,25 @@ def ba_phase(cuda_map, settings):
     return out
 
 
-def cpu_check(seq, first, cuda_map):
-    """The first frames again on the CPU (plain kernels, same RANSAC
-    draws): poses within 1e-4 of the card's (``first``, as they were
-    before the first window), identical label streams."""
+def cpu_check(root, loaded, first, cuda_map):
+    """The first frames of the same files on the CPU (plain FAST, both
+    detectors on the CPU, same RANSAC draws): poses within CPU_POSE_ATOL
+    of the card's (``first``, as they were before the first window),
+    identical label streams."""
     import numpy as np
 
     from sdpl_slam_torch.models.system import System
 
-    system = System(_lba_settings(seq), verbose=False, device="cpu")
-    for t in range(N_CPU_CHECK):
-        _track(system, seq, t)
+    system = System(os.path.join(root, "settings.yaml"), verbose=False,
+                    device="cpu")
+    for i in range(N_CPU_CHECK):
+        _track_loaded(system, loaded, i, loaded.frame(i))
     m = system.map
     err = max(float(np.abs(a - b).max())
               for a, b in zip(m.camera_poses, first))
-    if err > 1e-4:
+    print("  card vs CPU, first %d frames: max camera pose difference %g"
+          % (N_CPU_CHECK, err))
+    if err > CPU_POSE_ATOL:
         raise AssertionError("card vs CPU camera poses differ by %g" % err)
     if m.rm_labels != cuda_map.rm_labels[:N_CPU_CHECK - 1]:
         raise AssertionError("card vs CPU label streams differ")
@@ -469,6 +759,7 @@ def main():
     import numpy as np
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
@@ -494,9 +785,9 @@ def main():
     sass = _sass_sections(lib)
 
     t0 = time.perf_counter()
-    seq = SynthSequence(kitti_config(n_frames=N_FRAMES))
+    seq = SynthSequence(kitti_config(n_frames=N_FRAMES + 1))
     print("synthetic KITTI-scale sequence: %d frames in %.1f s"
-          % (N_FRAMES, time.perf_counter() - t0))
+          % (N_FRAMES + 1, time.perf_counter() - t0))
 
     k = kernel_phase([seq.frame(0).gray, seq.frame(1).gray],
                      torch.device("cuda"))
@@ -537,54 +828,115 @@ def main():
               k["bound_by"], 100 * k["bound_ms"] / k["dev_ms"],
               100 * k["bound_ms"] / k["dev_cold_ms"], smi))
 
-    with tempfile.TemporaryDirectory() as out_dir:
-        res = slice_phase(seq, out_dir)
-    # frame 0 initialises only; the window frames carry a BA
-    fm = sorted(x for t, x in enumerate(res["frame_ms"])
-                if t and t not in LBA_FRAMES)
-    print("slice phase: %d frames with the window BA (window 20, overlap 4) "
-          "and the global BA; %d object motions" % (N_FRAMES, res["n_obj"]))
-    for name, (t_err, r_err) in res["rpe"].items():
-        print("  camera RPE, %s poses: %.6f m / %.5f deg" % (name, t_err,
-                                                             r_err))
-    print("  tracking ms per frame: median %.2f over the %d frames without "
-          "a BA (frames 1-%d but %s); all %s" % (
-              fm[len(fm) // 2], len(fm), N_FRAMES - 1, LBA_FRAMES,
-              [round(x, 2) for x in res["frame_ms"]]))
-    slots = np.median(np.asarray(res["system"].map.frame_times[1:]), axis=0)
-    print("  host-clock slots, median ms (prep+detect, solve, grouping, "
-          "commit, renew): %s" % " ".join("%.2f" % x for x in slots))
-    for r in res["ba_runs"]:
-        print("  %s BA at frame %d: %.1f ms, %d LM iterations, %d CG "
-              "iterations, %d BA host reads" % (
-                  r["kind"], r["frame"], r["ms"], r["iterations"],
-                  r["cg_iterations"], r["host_syncs"]))
-    print("  FAST kernel launches %d (%d per frame), LM host syncs %d, "
-          "peak device memory %.1f MiB" % (
-              res["launches"], res["launches"] // N_FRAMES, res["syncs"],
-              res["peak"] / 2 ** 20))
-    warm = window_replay(res["replays"][LBA_FRAMES[0]], seq, LBA_FRAMES[0])
-    first = res["ba_runs"][0]
-    print("  first window replayed (the BA path now warm): %.1f ms, %d LM "
-          "iterations, %d CG iterations, %d BA host reads (the run's own: "
-          "%d / %d / %d)" % (
-              warm["ms"], warm["iterations"], warm["cg_iterations"],
-              warm["host_syncs"], first["iterations"],
-              first["cg_iterations"], first["host_syncs"]))
-    tr = window_trace(res["replays"][LBA_FRAMES[-1]], seq)
-    run = tr["run"]
-    print("  second window replayed under torch.profiler: %.1f ms wall, "
-          "%d LM / %d CG iterations, %d kernel launches (runtime calls), "
-          "%d device kernels summing %.2f ms (device busy %.1f %% of the "
-          "window), %d copies; %.1f launches per CG iteration" % (
-              tr["wall_ms"], run["iterations"], run["cg_iterations"],
-              tr["launch_calls"], tr["kernels"], tr["busy_ms"],
-              100 * tr["busy_ms"] / tr["wall_ms"], tr["copies"],
-              tr["launch_calls"] / max(run["cg_iterations"], 1)))
-    err = cpu_check(seq, res["first"], res["system"].map)
-    print("reference check: %d frames on the CPU, max camera pose "
-          "difference %g" % (N_CPU_CHECK, err))
+    from sdpl_slam_torch.models.system import System
+
+    line_cfg = System(_lba_settings(seq), verbose=False,
+                      device="cuda").tracker._line_cfg()
+    print("lines phase: detect_lines (%d octaves, cap %d, min length %.1f "
+          "px) on the card vs the CPU; match = both endpoints within %.1f "
+          "px; wall = median of 5 calls, launches and device ms from one "
+          "call under torch.profiler" % (
+              line_cfg.n_octaves, line_cfg.max_lines, line_cfg.min_length,
+              LINE_MATCH_PX))
+    print("  frame mode strokes card cpu  card->cpu cpu->card along recall  "
+          "wall_ms launches kernels device_ms")
+    rows, failures = lines_phase(seq, line_cfg)
+    for r in rows:
+        print("  %5d %4d %7d %4d %3d  %9.3f %9.3f %5.3f %6.3f  %7.2f %8d %7d "
+              "%9.3f" % (r["frame"], r["mode"], r["strokes"], r["card"],
+                         r["cpu"], r["fwd"], r["back"], r["along"],
+                         r["recall"], r["wall_ms"], r["launches"],
+                         r["kernels"], r["busy_ms"]))
+    if failures:
+        raise AssertionError("lines phase: " + "; ".join(failures))
+
+    with tempfile.TemporaryDirectory() as work:
+        root, out_dir = os.path.join(work, "seq"), os.path.join(work, "out")
+        t0 = time.perf_counter()
+        write_disk_sequence(seq, root)
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, fs in os.walk(root) for f in fs)
+        print("disk phase: %d frames written in the reference layout in "
+              "%.1f s (%.1f MB)" % (N_FRAMES + 1, time.perf_counter() - t0,
+                                    size / 1e6))
+        res = disk_phase(root, out_dir)
+        loaded = res["loaded"]
+        # frame 0 initialises only; the window frames carry a BA
+        fm = sorted(x for t, x in enumerate(res["frame_ms"])
+                    if t and t not in LBA_FRAMES)
+        print("  %d frames from files through load_sequence, FramePrefetcher "
+              "and System(settings.yaml), nothing injected, window BA "
+              "(window 20, overlap 4) and global BA; PNG decoder: %s; %d "
+              "object motions" % (N_FRAMES, res["decoder"], res["n_obj"]))
+        for name, (t_err, r_err) in res["rpe"].items():
+            print("  camera RPE, %s poses: %.6f m / %.5f deg (gates %g m / "
+                  "%g deg)" % (name, t_err, r_err, RPE_T_GATE, RPE_R_GATE))
+        print("  tracking ms per frame: median %.2f over the %d frames "
+              "without a BA (frames 1-%d but %s); all %s" % (
+                  fm[len(fm) // 2], len(fm), N_FRAMES - 1, LBA_FRAMES,
+                  [round(x, 2) for x in res["frame_ms"]]))
+        slots = np.median(np.asarray(res["system"].map.frame_times[1:]),
+                          axis=0)
+        print("  host-clock slots, median ms (prep+detect, solve, grouping, "
+              "commit, renew): %s" % " ".join("%.2f" % x for x in slots))
+        print("  line detector alone (in slot 0, between two "
+              "synchronisations): median %.2f ms, first frame %.2f ms; "
+              "static lines tracked per frame %s" % (
+                  float(np.median(res["line_ms"][1:])), res["line_ms"][0],
+                  res["n_lines"]))
+        print("  loader: median %.2f ms to read a frame's four files (in "
+              "the prefetch threads), median %.2f ms of the loop waiting "
+              "for frames t..t+2" % (float(np.median(res["load_ms"])),
+                                     float(np.median(res["wait_ms"][1:]))))
+        for r in res["ba_runs"]:
+            print("  %s BA at frame %d: %.1f ms, %d LM iterations, %d CG "
+                  "iterations, %d BA host reads" % (
+                      r["kind"], r["frame"], r["ms"], r["iterations"],
+                      r["cg_iterations"], r["host_syncs"]))
+        print("  FAST kernel launches %d (%d per frame), LM host syncs %d, "
+              "peak device memory %.1f MiB" % (
+                  res["launches"], res["launches"] // N_FRAMES, res["syncs"],
+                  res["peak"] / 2 ** 20))
+        warm = window_replay(res["replays"][LBA_FRAMES[0]], loaded,
+                             LBA_FRAMES[0])
+        first = res["ba_runs"][0]
+        print("  first window replayed (the BA path now warm): %.1f ms, %d "
+              "LM iterations, %d CG iterations, %d BA host reads (the run's "
+              "own: %d / %d / %d)" % (
+                  warm["ms"], warm["iterations"], warm["cg_iterations"],
+                  warm["host_syncs"], first["iterations"],
+                  first["cg_iterations"], first["host_syncs"]))
+        tr = window_trace(res["replays"][LBA_FRAMES[-1]], loaded)
+        run = tr["run"]
+        print("  second window replayed under torch.profiler: %.1f ms wall, "
+              "%d LM / %d CG iterations, %d kernel launches (runtime "
+              "calls), %d device kernels summing %.2f ms (device busy %.1f "
+              "%% of the window), %d copies; %.1f launches per CG iteration"
+              % (tr["wall_ms"], run["iterations"], run["cg_iterations"],
+                 tr["launch_calls"], tr["kernels"], tr["busy_ms"],
+                 100 * tr["busy_ms"] / tr["wall_ms"], tr["copies"],
+                 tr["launch_calls"] / max(run["cg_iterations"], 1)))
+        err = cpu_check(root, loaded, res["first"], res["system"].map)
+        print("  reference check: the first %d frames of the same files on "
+              "the CPU, max camera pose difference %g (limit %g)"
+              % (N_CPU_CHECK, err, CPU_POSE_ATOL))
+
+    ms, n, (t_err, r_err) = generator_phase(
+        seq, N_INJECTED, "injected path", RPE_T_GATE, RPE_R_GATE)
+    print("injected phase: %d generator frames, lines injected, no BA: "
+          "median %.2f ms a frame, %d FAST launches, camera RPE %.6f m / "
+          "%.5f deg" % (N_INJECTED, ms, n, t_err, r_err))
+    ms, n, (t_err, r_err) = generator_phase(
+        seq, N_NONJOINT, "non-joint path", NONJOINT_T_GATE, NONJOINT_R_GATE,
+        use_joint_optimization=False)
+    print("non-joint phase: %d frames with use_joint_optimization = False "
+          "(pose-only camera LM, 130 fixed iterations), lines injected: "
+          "median %.2f ms a frame, %d FAST launches, camera RPE %.6f m / "
+          "%.5f deg (gates %g m / %g deg)" % (
+              N_NONJOINT, ms, n, t_err, r_err, NONJOINT_T_GATE,
+              NONJOINT_R_GATE))
     ba_phase(res["system"].map, res["system"].settings)
+    print("total: %.1f s" % (time.perf_counter() - t_start))
 
     print(json.dumps({"kernels": [{
         "name": "fast_score_pyramid",

@@ -5,11 +5,15 @@ for Hopper where the JAX package used Pallas.
 Layout mirrors the JAX package so each module's counterpart is easy to find:
 
 - ``ops``      : Lie-group / projective / line geometry, FAST pyramid (with
-                 the CUDA FAST-9/16 score kernel), RANSAC init.
-- ``solvers``  : the batched joint flow+pose LM; batch BA (the window and
-                 the full-sequence LM with block-Jacobi CG).
+                 the CUDA FAST-9/16 score kernel), the line detector and
+                 its LSD oracle, RANSAC init.
+- ``solvers``  : the batched joint flow+pose LM and the pose-only LM; batch
+                 BA (the window and the full-sequence LM with block-Jacobi
+                 CG).
 - ``models``   : Frame ops, host-side selections, Map, Tracking, System.
-- ``io``       : result writers and the native host-I/O bindings.
+- ``io``       : sequence loaders and the frame prefetcher, a PNG codec on
+                 zlib + numpy, result writers, the native host-I/O
+                 bindings.
 - ``utils``    : Settings, metrics, plotting, the numpy synthetic sequence
                  generator and the JAX-state converter.
 - ``csrc``     : CUDA C++ kernel sources, built at first use.

@@ -67,12 +67,19 @@ class System:
         line_detections: Optional[np.ndarray] = None,
         point_detections: Optional[np.ndarray] = None,
         traj: Optional[np.ndarray] = None,
+        next_image: Optional[np.ndarray] = None,
+        next_image2: Optional[np.ndarray] = None,
     ) -> np.ndarray:
         """Track one RGB-D frame; returns the estimated T_cw
         (``System::TrackRGBD``, System.cc:51-64).  ``traj``: optional
         caller-owned (H, W, 3) uint8 BGR canvas on which, for KITTI data,
         the bird's-eye camera square and object centres are drawn in place
-        (Tracking.cc:836-907)."""
+        (Tracking.cc:836-907).  ``next_image`` / ``next_image2``: the JAX
+        package's prefetch hints (frames t+1 and t+2, from which it
+        dispatches their detectors early); accepted so the same calling
+        loop runs here, and unused, because this package runs each frame's
+        detectors synchronously.  In the JAX package they change no
+        result either."""
 
         def to_gray(img):
             if img.ndim != 3:

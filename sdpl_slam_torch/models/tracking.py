@@ -5,6 +5,7 @@ path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
 
   GrabImageRGBD (Tracking.cc:179)  ->  Tracking.grab_rgbd
     FAST pyramid on the device        ops.fast.detect_keypoints
+    line detector on the device       ops.lines.detect_lines
     depth preprocess (:195-219)       _np_preprocess_depth (host)
     UpdateMask (:4730)                _update_mask (host)
     selections, inheritance           frame_host (host numpy)
@@ -12,7 +13,9 @@ path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
     camera init (:2738) + joint flow+pose LM (Optimizer.cc:6409),
     scene flow (:1989), DynObjTracking (:2077), per-object init + joint
     flow+motion LMs (Optimizer.cc:7603) batched over objects: _solve_frame
-    on the device, one host copy of its outputs per frame
+    on the device, one host copy of its outputs per frame; with
+    ``use_joint_optimization = False`` the camera takes the pose-only LM
+    on fixed structure instead (Optimizer.cc:5900): _solve_frame_nonjoint
     RenewFrameInfo (:3959), map appends (:1605-1786) on the host
   batch optimisation triggers (:1793-1884): the window BA
     (``partial_batch_optimization``) at the reference cadence and the full
@@ -23,12 +26,15 @@ as in the JAX package.  Fixed capacities come from the reference's caps
 (1200 static points, 400 static lines, 800 points and 100 lines per
 object).
 
+Both detectors run synchronously at the start of their frame and come
+home in one host copy; the JAX package's jit memo, packed buffer and
+dispatch one frame ahead hide a transport this package does not have.
+
 Not in this package yet, and refused by :func:`check_supported` rather
-than run differently: the dense-Schur BA step (``ba_schur``), the in-loop
-line detector (segments come in through ``line_detections=``), the
-non-joint solver, and the resident / chained / pipelined modes of the JAX
-package.  The port runs each frame synchronously; the JAX package's own
-tests show its pipelining changes no result.
+than run differently: the dense-Schur BA step (``ba_schur``) and the
+resident / chained / pipelined modes of the JAX package.  The port runs
+each frame synchronously; the JAX package's own tests show its pipelining
+changes no result.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ import torch
 from ..io import native as _native
 from ..ops import fast as fast_ops
 from ..ops import geometry, lie, ransac
+from ..ops import lines as line_ops
 from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import batch_ba as bb
@@ -74,8 +81,6 @@ def check_supported(cfg: Settings) -> None:
         (cfg.ba_schur and (cfg.run_local_ba or _global_ba_on(cfg)),
          "ba_schur=True with a batch BA on (ROADMAP A12, the dense-Schur "
          "step; set ba_schur=False)"),
-        (not cfg.use_joint_optimization,
-         "use_joint_optimization=False (ROADMAP A3, solve_pose_only)"),
     ]
     for bad, what in refused:
         if bad:
@@ -218,13 +223,18 @@ class Tracking:
         self._oline_label = np.full(self.NLO, -2, np.int32)
         self._grid_cache = None
         self.lm_host_syncs = 0                           # LM loop-exit reads
+        # host-clock ms of the line detector alone (between two device
+        # synchronisations), one entry per frame that ran it
+        self.line_detect_ms: List[float] = []
         # one dict per batch BA run: kind ("local" / "global"), frame, wall
         # ms, LM and CG iterations, host reads (batch_ba.run_ba's counters)
         self.ba_runs: List[dict] = []
 
     def _ransac_uniforms(self, f_id: int, lane: int, n_hyp: int) -> torch.Tensor:
         """(n_hyp, 3) uniforms in [0, 1) for one RANSAC problem: lane 0 is
-        the camera, lane k + 1 the k-th object bucket.  Drawn from a
+        the camera, lane k + 1 the k-th object bucket (the non-joint
+        path's objects pass ``1000 + f_id``, a stream of their own as in
+        the JAX package).  Drawn from a
         ``torch.Generator`` seeded from ``(f_id, lane)``, so a frame's
         draws depend on nothing else (the JAX package folds the frame key
         by lane index for the same reason).  The generator is a CPU one
@@ -246,6 +256,25 @@ class Tracking:
             min_threshold=float(cfg.orb_min_th_fast),
         )
 
+    def _line_cfg(self):
+        """Line detector settings from the yaml line keys: min segment
+        length 0.02*min(w, h), the reference's LSD option
+        (Lineextractor.cc:70), floored at 8 px; ``line_levels`` octaves;
+        ``line_extractor`` 0 = LSD-style, 1 = EDLines-style
+        (Tracking.cc:113-118); ``lsd_nfeatures`` caps the count (0 =
+        unlimited); ``lsd_refine = 0`` disables endpoint refinement.
+        ``lsd_scale`` is inert (see utils/config.py)."""
+        cfg = self.cfg
+        base = line_ops.LineDetectConfig()
+        return line_ops.LineDetectConfig(
+            max_lines=self.NL_CAND,
+            min_length=max(8.0, 0.02 * min(cfg.width, cfg.height)),
+            n_octaves=max(1, cfg.line_levels),
+            mode=1 if cfg.line_extractor == 1 else 0,
+            n_features=max(0, int(cfg.lsd_nfeatures)),
+            refine_steps=0 if cfg.lsd_refine == 0 else base.refine_steps,
+        )
+
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -264,18 +293,14 @@ class Tracking:
     ) -> np.ndarray:
         """Process one frame; returns the estimated camera pose T_cw.
 
-        ``line_detections``: (L, 4) detected segments -- required while
-        ``use_lines`` is on, since the in-loop line detector is not ported
-        yet.  ``point_detections``: optional (P, 2) corners replacing the
-        FAST pyramid.
+        ``line_detections``: optional (L, 4) segments replacing the line
+        detector; ``point_detections``: optional (P, 2) corners replacing
+        the FAST pyramid.  With neither, both detectors run on ``gray`` on
+        the tracker's device.
         """
         cfg = self.cfg
         h, w = gray.shape
         timing = np.zeros(5, np.float32)
-        if cfg.use_lines and line_detections is None:
-            raise NotImplementedError(
-                "sdpl_slam_torch has no in-loop line detector yet (ROADMAP "
-                "A7): pass line_detections= or set use_lines=False")
 
         # --- stop frame semantics (Tracking.cc:184) ---
         stop_frame = (
@@ -293,9 +318,11 @@ class Tracking:
             ).astype(np.float32)
 
         t0 = time.perf_counter()
-        det = None
-        if cfg.use_sample_fea == 0 and point_detections is None:
-            det = self._detect(gray)
+        need_fast = cfg.use_sample_fea == 0 and point_detections is None
+        need_lines = line_detections is None and cfg.use_lines
+        det, detected_lines = self._detect(gray, need_fast, need_lines)
+        if need_lines:
+            line_detections = detected_lines
         depth_now = _np_preprocess_depth(
             np.asarray(depth_raw, np.float32), cfg.choose_data,
             cfg.depth_map_factor, cfg.bf,
@@ -333,11 +360,42 @@ class Tracking:
         return pose
 
     # ------------------------------------------------------------------
-    def _detect(self, gray: np.ndarray):
-        """FAST pyramid on the tracker's device -> host (uv, valid)."""
+    def _detect(self, gray: np.ndarray, need_fast: bool, need_lines: bool):
+        """The detectors this frame needs, on the tracker's device, and one
+        host copy of their packed results -> ((uv, valid) or None,
+        (L, 4) valid segments or None).  The line detector is timed on its
+        own between two synchronisations (``line_detect_ms``)."""
+        if not (need_fast or need_lines):
+            return None, None
         img = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
-        uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
-        return uv.cpu().numpy(), valid.cpu().numpy()
+        cuda = self.device.type == "cuda"
+        parts = []
+        if need_fast:
+            uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
+            parts.append(torch.cat([uv, valid[:, None].to(uv.dtype)], 1))
+        if need_lines:
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            seg = line_ops.detect_lines(img, self._line_cfg())
+            if cuda:
+                torch.cuda.synchronize(self.device)
+            self.line_detect_ms.append((time.perf_counter() - t0) * 1e3)
+            parts.append(torch.cat(
+                [seg.uv4, seg.valid[:, None].to(seg.uv4.dtype)], 1))
+        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        det = lines = None
+        if need_fast:
+            n = parts[0].shape[0]
+            fast = flat[:3 * n].reshape(n, 3)
+            det = (fast[:, :2], fast[:, 2] > 0.5)
+            flat = flat[3 * n:]
+        if need_lines:
+            packed = flat.reshape(-1, 5)
+            # the global collinear merge already ran inside detect_lines;
+            # the host only compacts the valid rows
+            lines = packed[packed[:, 4] > 0.5, :4]
+        return det, lines
 
     def _finish_selection(self, det, point_detections,
                           line_detections, flow_np, h, w):
@@ -445,15 +503,22 @@ class Tracking:
 
         # ---- camera + objects on the device, one host copy back ----
         t0 = time.perf_counter()
-        out = self._solve_frame(velocity_np, last, s_uv, s_d, last_s_valid,
-                                l_use, buckets)
+        if cfg.use_joint_optimization:
+            out = self._solve_frame(velocity_np, last, s_uv, s_d,
+                                    last_s_valid, l_use, buckets)
+        else:
+            out = self._solve_frame_nonjoint(velocity_np, last, s_uv, s_d,
+                                             last_s_valid, l_uv, l_use,
+                                             buckets)
         pose_np = out["pose"]
         stat_track_ok, line_track_ok = out["point_inlier"], out["line_inlier"]
-        # update tracked positions from optimised flow (Optimizer.cc:6796)
-        s_uv = np.where(stat_track_ok[:, None], last["stat_uv"] + out["flow"],
-                        s_uv)
-        l_uv = np.where(line_track_ok[:, None],
-                        last["line_uv"] + out["line_flow"], l_uv)
+        if cfg.use_joint_optimization:
+            # update tracked positions from optimised flow
+            # (Optimizer.cc:6796)
+            s_uv = np.where(stat_track_ok[:, None],
+                            last["stat_uv"] + out["flow"], s_uv)
+            l_uv = np.where(line_track_ok[:, None],
+                            last["line_uv"] + out["line_flow"], l_uv)
         obj_pulled = None
         if buckets is not None:
             n_obj = len(groups)
@@ -586,23 +651,67 @@ class Tracking:
         subset = torch.where(use_ransac[:, None], rs.inliers, mm_inl)
         return T_init, subset, torch.maximum(rs.n_inliers, mm_n)
 
+    def _flow_pose_solver(self):
+        cfg = self.cfg
+        return functools.partial(
+            fs.solve_flow_pose, K=self.K, rp_thres=cfg.rp_thres,
+            max_iterations=cfg.lm_iterations, rel_tol=cfg.lm_rel_tol)
+
+    def _camera_init(self, velocity_np, last, s_uv, s_d, last_s_valid):
+        """GetInitModelCam on the device -> (T_lw, last static pixels and
+        depths with a lane dim, T_init (1, 4, 4), subset (1, NS))."""
+        t = self._tensor
+        T_lw = t(last["pose"])
+        s_obs, s_depth = t(last["stat_uv"])[None], t(last["stat_depth"])[None]
+        u_cam = self._ransac_uniforms(self.f_id, 0, self.n_hyp_cam)[None]
+        T_init, subset, _ = self._init_model(
+            u_cam, (t(velocity_np) @ T_lw)[None], T_lw, s_obs, s_depth,
+            t(s_uv)[None], t(s_d)[None], t(last_s_valid, torch.bool)[None])
+        return T_lw, s_obs, s_depth, T_init, subset
+
+    def _bucket_tensors(self, buckets):
+        t = self._tensor
+        return {k: (t(v, torch.bool) if v.dtype == bool else t(v))
+                for k, v in buckets.items() if k != "any_lines"}
+
+    def _solve_objects(self, pose, T_lw, T_wl, b, any_lines, key_f_id):
+        """GetInitModelObj + the joint flow+motion solve over the object
+        buckets ``b`` given the camera ``pose``; RANSAC draws of lane k + 1
+        of ``key_f_id``."""
+        cfg = self.cfg
+        # motion-model branch of GetInitModelObj: G = T_cw_cur . H_last
+        T_models = pose @ b["H_prev"]
+        u_obj = torch.stack([
+            self._ransac_uniforms(key_f_id, k + 1, self.n_hyp_obj)
+            for k in range(b["pt_obs"].shape[0])])
+        T_is, init_inl, init_n = self._init_model(
+            u_obj, T_models, T_lw, b["pt_obs"], b["pt_depth"],
+            b["pt_cur_uv"], b["pt_cur_d"], b["pt_valid"])
+        res = self._flow_pose_solver()(
+            T_is, T_wl,
+            fs.PointBundle(b["pt_obs"], b["pt_flow0"], b["pt_depth"],
+                           b["pt_valid"] & init_inl),
+            fs.LineBundle(b["ln_obs"], b["ln_flow0"], b["ln_depth"],
+                          b["ln_valid"]),
+            flow_prior_info=cfg.flow_prior_info_obj,
+            line_prior_info=cfg.flow_prior_info_obj,
+            use_lines=any_lines and cfg.use_lines)
+        self.lm_host_syncs += res.host_syncs
+        return dict(o_pose=res.pose, o_flow=res.flow,
+                    o_line_flow=res.line_flow,
+                    o_point_inlier=res.point_inlier,
+                    o_line_inlier=res.line_inlier, o_init_n=init_n)
+
     def _solve_frame(self, velocity_np, last, s_uv, s_d, last_s_valid,
                      l_use, buckets):
         """Camera init -> joint camera solve -> scene-flow static test ->
         object inits -> joint object solves on ``self.device``; returns
         the outputs as host numpy arrays."""
         cfg, K, t = self.cfg, self.K, self._tensor
-        T_lw = t(last["pose"])
+        T_lw, s_obs, s_depth, T_init, subset = self._camera_init(
+            velocity_np, last, s_uv, s_d, last_s_valid)
         T_wl = torch.linalg.inv(T_lw)
-        s_obs, s_depth = t(last["stat_uv"])[None], t(last["stat_depth"])[None]
-        u_cam = self._ransac_uniforms(self.f_id, 0, self.n_hyp_cam)[None]
-        T_init, subset, _ = self._init_model(
-            u_cam, (t(velocity_np) @ T_lw)[None], T_lw, s_obs, s_depth,
-            t(s_uv)[None], t(s_d)[None], t(last_s_valid, torch.bool)[None])
-        solve = functools.partial(
-            fs.solve_flow_pose, K=K, rp_thres=cfg.rp_thres,
-            max_iterations=cfg.lm_iterations, rel_tol=cfg.lm_rel_tol)
-        cam = solve(
+        cam = self._flow_pose_solver()(
             T_init, T_wl,
             fs.PointBundle(s_obs, t(last["stat_flow"])[None], s_depth, subset),
             fs.LineBundle(t(last["line_uv"])[None], t(last["line_flow"])[None],
@@ -616,10 +725,8 @@ class Tracking:
                     point_inlier=cam.point_inlier[0],
                     line_inlier=cam.line_inlier[0])
         if buckets is not None:
-            b = {k: (t(v, torch.bool) if v.dtype == bool else t(v))
-                 for k, v in buckets.items() if k != "any_lines"}
+            b = self._bucket_tensors(buckets)
             pose = cam.pose[0]
-            MB = b["pt_obs"].shape[0]
             # scene-flow static test (GetSceneFlowObj + DynObjTracking's
             # x-z scene-flow fraction, Tracking.cc:1989-2075/:2528-2560)
             Xp_w = lie.transform_point(
@@ -631,31 +738,68 @@ class Tracking:
             sfn = torch.sqrt(f3[..., 0] ** 2 + f3[..., 2] ** 2)
             v = b["pt_sfvalid"].to(torch.float32)
             n = torch.clamp(v.sum(-1), min=1.0)
-            static_frac = (v * (sfn < cfg.sf_mg_thres)).sum(-1) / n
-            # motion-model branch of GetInitModelObj: G = T_cw_cur . H_last
-            T_models = pose @ b["H_prev"]
-            u_obj = torch.stack([
-                self._ransac_uniforms(self.f_id, k + 1, self.n_hyp_obj)
-                for k in range(MB)])
-            T_is, init_inl, init_n = self._init_model(
-                u_obj, T_models, T_lw, b["pt_obs"], b["pt_depth"],
-                b["pt_cur_uv"], b["pt_cur_d"], b["pt_valid"])
-            res = solve(
-                T_is, T_wl,
-                fs.PointBundle(b["pt_obs"], b["pt_flow0"], b["pt_depth"],
-                               b["pt_valid"] & init_inl),
-                fs.LineBundle(b["ln_obs"], b["ln_flow0"], b["ln_depth"],
-                              b["ln_valid"]),
-                flow_prior_info=cfg.flow_prior_info_obj,
-                line_prior_info=cfg.flow_prior_info_obj,
-                use_lines=buckets["any_lines"] and cfg.use_lines)
-            self.lm_host_syncs += res.host_syncs
-            outs.update(o_pose=res.pose, o_flow=res.flow,
-                        o_line_flow=res.line_flow,
-                        o_point_inlier=res.point_inlier,
-                        o_line_inlier=res.line_inlier, o_init_n=init_n,
-                        o_static_frac=static_frac)
+            outs["o_static_frac"] = (v * (sfn < cfg.sf_mg_thres)).sum(-1) / n
+            outs.update(self._solve_objects(
+                pose, T_lw, T_wl, b, buckets["any_lines"], self.f_id))
         return {k: v.cpu().numpy() for k, v in outs.items()}
+
+    def _solve_frame_nonjoint(self, velocity_np, last, s_uv, s_d,
+                              last_s_valid, l_uv, l_use, buckets):
+        """``bJoint = false``: PoseOptimizationNewWithLines
+        (Optimizer.cc:5900) for the camera on the last frame's fixed 3D
+        structure, unprojected with the reference's Gaussian depth noise
+        (UnprojectStereoStat(.., addnoise=1), Optimizer.cc:5982), drawn on
+        the host from ``np.random.default_rng(f_id)``; the objects keep
+        the joint flow+motion solve, with RANSAC draws of their own
+        stream, and their static test runs on the host.  Same keys as
+        :meth:`_solve_frame` without the camera flows.
+
+        One departure from the JAX package: its non-joint object chain
+        hands the init the inverse of the last pose where the init
+        expects the pose itself (``sdpl_slam_tpu`` models/tracking.py
+        ``_dispatch_objects_legacy``), so its object inlier sets are taken
+        against misplaced world points from the second tracked frame on.
+        Here the init takes the pose, as on the joint path."""
+        cfg, K, t = self.cfg, self.K, self._tensor
+        T_lw, _, _, T_init, subset = self._camera_init(
+            velocity_np, last, s_uv, s_d, last_s_valid)
+        depth_n = last["stat_depth"]
+        if cfg.nonjoint_add_noise:
+            nrng = np.random.default_rng(self.f_id)
+            sigma = depth_n * depth_n / (725.0 * 0.5) * 0.15
+            depth_n = (
+                depth_n + sigma * nrng.standard_normal(depth_n.shape)
+            ).astype(np.float32)
+        X_w = _np_world_points(K, last["pose"], last["stat_uv"], depth_n)
+        l3d = last["line_3d"]
+        l_cur = t(l_uv)
+        lcoef = geometry.infinite_line_image(l_cur[:, :2], l_cur[:, 2:])
+        cam = fs.solve_pose_only(
+            T_init[0], t(X_w), t(s_uv), subset[0], t(l3d[:, :3]),
+            t(l3d[:, 3:]), lcoef, t(l_use, torch.bool), K,
+            rp_thres=0.01, line_weight_thr=50, use_lines=cfg.use_lines)
+        outs = dict(pose=cam.pose, point_inlier=cam.point_inlier,
+                    line_inlier=cam.line_inlier)
+        if buckets is not None:
+            outs.update(self._solve_objects(
+                cam.pose, T_lw, torch.linalg.inv(T_lw),
+                self._bucket_tensors(buckets), buckets["any_lines"],
+                1000 + self.f_id))
+        out = {k: v.cpu().numpy() for k, v in outs.items()}
+        if buckets is not None:
+            # host static test (scene flow with the already-known pose)
+            b = buckets
+            Xp_w = _np_world_points(K, last["pose"], b["pt_obs"],
+                                    b["pt_depth"])
+            Xc_w = _np_world_points(K, out["pose"], b["pt_cur_uv"],
+                                    b["pt_cur_d"])
+            f3 = Xc_w - Xp_w
+            sfn = np.sqrt(f3[..., 0] ** 2 + f3[..., 2] ** 2)
+            v = b["pt_sfvalid"].astype(np.float32)
+            nv = np.maximum(v.sum(axis=-1), 1.0)
+            out["o_static_frac"] = (
+                (v * (sfn < cfg.sf_mg_thres)).sum(axis=-1) / nv)
+        return out
 
     # ------------------------------------------------------------------
     def _update_mask(self):

@@ -13,8 +13,8 @@ gradients:
   the tangent index as a leading batch dim give every column of every
   edge's block at once (the JAX package's ``vmap(jacfwd)``);
 * Hessian-vector products are gather -> batched matmul -> ``index_add_``,
-  summed in a fixed order on the card too (:func:`_scatter_add`), so a BA
-  on the same input runs the same iterations every time;
+  summed in a fixed order on the card too (``utils.device.scatter_add``),
+  so a BA on the same input runs the same iterations every time;
 * the robust (Huber) weights are frozen per outer LM iteration (IRLS).
 
 Vertices, edges, information and Huber deltas are the JAX module's
@@ -49,6 +49,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops import geometry, lie
+from ..utils.device import scatter_add
 
 CG_CHECK_EVERY = 4
 
@@ -364,24 +365,6 @@ def _cost_only(graph: BAGraph, state: BAState, w: BAWeights):
     return total + graph.prior_info * torch.sum(r_p * r_p)
 
 
-def _scatter_add(dst, idx, src):
-    """``dst.index_add_(0, idx, src)`` in one fixed order of summation.  On
-    the card ``index_add_`` adds with atomics in an order that varies from
-    run to run; float32 CG amplifies that, and the LM's iteration count
-    and time vary with it.  PyTorch's deterministic mode routes the call
-    through a sorted accumulate instead.  It is switched on around this
-    call alone: on for the whole solve it would also demand a cuBLAS
-    workspace setting of the process."""
-    if not dst.is_cuda or torch.are_deterministic_algorithms_enabled():
-        dst.index_add_(0, idx, src)
-        return
-    torch.use_deterministic_algorithms(True)
-    try:
-        dst.index_add_(0, idx, src)
-    finally:
-        torch.use_deterministic_algorithms(False)
-
-
 def _hvp_and_grad(lin, prior, graph: BAGraph, state: BAState):
     """(flat gradient, flat hvp function, block-diagonal dict) from the
     linearized edges: gather, batched matmul, scatter-add."""
@@ -398,7 +381,7 @@ def _hvp_and_grad(lin, prior, graph: BAGraph, state: BAState):
     for o in lin:
         rw = o["r"] * o["wgt"][:, None]
         for (fam, idx), J in zip(o["verts"], o["jacs"]):
-            _scatter_add(gv[fam], idx, _jt(J, rw))
+            scatter_add(gv[fam], idx, _jt(J, rw))
     gv["cam"][pf] += pinfo * (J_p[0].T @ r_p[0])
 
     def hvp(v):
@@ -412,7 +395,7 @@ def _hvp_and_grad(lin, prior, graph: BAGraph, state: BAState):
                 y = t if y is None else y + t
             y = y * o["wgt"][:, None]
             for (fam, idx), J in zip(o["verts"], o["jacs"]):
-                _scatter_add(ov[fam], idx, _jt(J, y))
+                scatter_add(ov[fam], idx, _jt(J, y))
         ov["cam"][pf] += pinfo * (J_p[0].T @ (J_p[0] @ vv["cam"][pf]))
         return out
 
@@ -420,7 +403,7 @@ def _hvp_and_grad(lin, prior, graph: BAGraph, state: BAState):
           for f, c in _family_sizes(state)}
     for o in lin:
         for (fam, idx), J in zip(o["verts"], o["jacs"]):
-            _scatter_add(bd[fam], idx,
+            scatter_add(bd[fam], idx,
                          J.transpose(1, 2) @ (J * o["wgt"][:, None, None]))
     bd["cam"][pf] += pinfo * (J_p[0].T @ J_p[0])
     return g, hvp, bd

@@ -1,4 +1,5 @@
-"""Per-frame joint flow+pose / flow+object-motion solver as batched LM.
+"""Per-frame solvers: the joint flow+pose / flow+object-motion LM, batched
+over lanes, and the pose-only LM of the non-joint path.
 
 Counterpart of ``sdpl_slam_tpu.solvers.frame_solvers.solve_flow_pose``
 (reference Optimizer.cc:6409 ``PoseOptimizationFlow2CamWithLines`` and
@@ -25,6 +26,11 @@ The flow Jacobian of the line residual (``jax.jacfwd`` in JAX) is written
 in closed form: with c = p_h x q_h, n = sqrt(c.c + eps), l = c / n and
 e_k = l . h_k, de_k/dc = (h_k - l e_k) / n, and dc/dP, dc/dQ are cross
 products with q_h and p_h.
+
+:func:`solve_pose_only` is the non-joint solver (``bJoint = false``;
+reference Optimizer.cc:5742 / :5900 ``PoseOptimizationNew(WithLines)``):
+pose-only LM on fixed 3D structure, four gating rounds of a fixed
+100 / 10 / 10 / 10 iterations, no host read inside.
 """
 
 from __future__ import annotations
@@ -120,6 +126,132 @@ def line_flow_jacobian(g, obs4, ps, pe, eps: float = 1e-12):
         dQ = torch.linalg.cross(v, ph)[..., :2]
         rows.append(torch.cat([dP, dQ], -1))
     return torch.stack(rows, -2)
+
+
+def inject_depth_noise(z: torch.Tensor, draws: torch.Tensor) -> torch.Tensor:
+    """Gaussian depth-noise injection of the non-joint solvers
+    (``addnoise=1``, Frame::UnprojectStereoStat, reference
+    src/Frame.cc:1140-1150): sigma = z^2 / (725 * 0.5) * 0.15.  ``draws``
+    are standard-normal samples of ``z``'s shape, an argument because no
+    torch generator reproduces ``jax.random.normal``."""
+    sigma = z * z / (725.0 * 0.5) * 0.15
+    return z + sigma * draws
+
+
+class PoseOnlyResult(NamedTuple):
+    pose: torch.Tensor
+    point_inlier: torch.Tensor
+    line_inlier: torch.Tensor
+    final_cost: torch.Tensor
+
+
+def pose_only_line_parts(T, line_Xs, line_Xe, line_coeffs, K: Intrinsics):
+    """Residual (M, 2) and Jacobian (M, 2, 6) of the pose-only line edge
+    r = [l . h(pi(T Xs)), l . h(pi(T Xe))] for a left perturbation
+    exp(dxi) T, [omega, v] order: row k is l_2d . d pi / d xi, the negative
+    of :func:`_point_proj_jacobian` (which carries the (obs - pi) sign) --
+    ``jax.jacfwd`` of the residual in the JAX package, in closed form.
+    Non-finite entries (padded lines) become zeros."""
+    l2 = line_coeffs[..., :2]
+    r, J = [], []
+    for X in (line_Xs, line_Xe):
+        xyz = lie.transform_point(T, X)
+        r.append(geometry.point_to_image_line(geometry.project(K, xyz),
+                                              line_coeffs))
+        J.append(torch.einsum("mk,mki->mi", l2,
+                              -_point_proj_jacobian(xyz, K.fx, K.fy)))
+    return (torch.nan_to_num(torch.stack(r, -1)),
+            torch.nan_to_num(torch.stack(J, -2)))
+
+
+def solve_pose_only(
+    T_init: torch.Tensor,
+    X_w: torch.Tensor,          # (N, 3) fixed 3D (world) from the last frame
+    obs_uv: torch.Tensor,       # (N, 2) current 2D observations
+    valid: torch.Tensor,
+    line_Xs: torch.Tensor,      # (M, 3) line endpoint 3D (world)
+    line_Xe: torch.Tensor,
+    line_coeffs: torch.Tensor,  # (M, 3) measured infinite-line coefficients
+    line_valid: torch.Tensor,
+    K: Intrinsics,
+    rp_thres: float = 0.01,
+    line_weight_thr: int = 50,
+    use_lines: bool = True,
+) -> PoseOnlyResult:
+    """Pose-only (or motion-only) LM on fixed 3D structure.
+
+    Residuals: r_p = obs - pi(T X_w) (info I, Huber sqrt(rp_thres));
+    r_l = [l . h(pi(T Xs)), l . h(pi(T Xe))] with the measured current
+    infinite line l (info I, Huber sqrt(W*7.815), W = 2^-(n//50)).
+    Four gating rounds of {100,10,10,10} iterations with chi2 thresholds
+    {rp_thres, 5.991, 5.991, 5.991} (Optimizer.cc:5832,6080); outliers are
+    excluded per round and may re-enter.  Every round runs its full count
+    (a rejected step only raises the damping), so the solve reads nothing
+    on the host.
+    """
+    dtype, dev = X_w.dtype, X_w.device
+    n_valid0 = valid.sum(dtype=torch.int32)
+    weight = torch.pow(2.0, -(n_valid0 // line_weight_thr).to(dtype))
+    delta_line = torch.sqrt(weight * 7.815)
+    delta_mono = float(np.sqrt(np.float32(rp_thres)))
+    lvalid0 = line_valid & bool(use_lines)
+    eye6 = torch.eye(6, dtype=dtype, device=dev)
+
+    def residuals(T):
+        xyz = lie.transform_point(T, X_w)
+        r_p = obs_uv - geometry.project(K, xyz)
+        r_l, J_l = pose_only_line_parts(T, line_Xs, line_Xe, line_coeffs, K)
+        return (r_p, torch.sum(r_p * r_p, -1), r_l, torch.sum(r_l * r_l, -1),
+                xyz, J_l)
+
+    def lm_round(T, active_p, active_l, iters):
+        pv = (valid & active_p).to(dtype)
+        lv = (lvalid0 & active_l).to(dtype)
+
+        def cost_of(chi2_p, chi2_l):
+            return (torch.sum(pv * _huber_rho(chi2_p, delta_mono))
+                    + torch.sum(lv * _huber_rho(chi2_l, delta_line)))
+
+        def cost_fn(Tc):
+            _, chi2_p, _, chi2_l, _, _ = residuals(Tc)
+            return cost_of(chi2_p, chi2_l)
+
+        lam = torch.as_tensor(1e-4, dtype=dtype, device=dev)
+        cost = cost_fn(T)
+        for _ in range(iters):
+            r_p, chi2_p, r_l, chi2_l, xyz, Jl = residuals(T)
+            w_p = pv * _huber_weight(chi2_p, delta_mono)
+            w_l = lv * _huber_weight(chi2_l, delta_line)
+            Jp = _point_proj_jacobian(xyz, K.fx, K.fy)
+            H = (torch.einsum("nki,nkj,n->ij", Jp, Jp, w_p)
+                 + torch.einsum("mki,mkj,m->ij", Jl, Jl, w_l))
+            b = -(torch.einsum("nki,nk,n->i", Jp, r_p, w_p)
+                  + torch.einsum("mki,mk,m->i", Jl, r_l, w_l))
+            dxi = torch.linalg.solve_ex(H + lam * eye6, b)[0]
+            T_new = lie.se3_retract(T, dxi)
+            new_cost = cost_fn(T_new)
+            accept = (new_cost < cost) & torch.isfinite(new_cost)
+            lam = torch.where(accept, lam * 0.5, lam * 4.0)
+            T = torch.where(accept, T_new, T)
+            cost = torch.where(accept, new_cost, cost)
+        return T, cost
+
+    T = T_init
+    active_p = torch.ones_like(valid)
+    active_l = torch.ones_like(line_valid)
+    for gate, iters in zip((rp_thres, 5.991, 5.991, 5.991),
+                           (100, 10, 10, 10)):
+        T, cost = lm_round(T, active_p, active_l, iters)
+        _, chi2_p, _, chi2_l, _, _ = residuals(T)
+        active_p = chi2_p <= gate
+        active_l = chi2_l <= weight * 7.815
+    return PoseOnlyResult(
+        # SE(3) projection of the LM composition chain (lie.so3_orthonormalize)
+        pose=lie.se3_orthonormalize(T),
+        point_inlier=valid & active_p,
+        line_inlier=lvalid0 & active_l,
+        final_cost=cost,
+    )
 
 
 def solve_flow_pose(

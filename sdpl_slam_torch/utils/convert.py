@@ -35,6 +35,13 @@ def settings_from_jax(jax_settings) -> Settings:
     return Settings(**{k: copy.deepcopy(v) for k, v in src.items() if k in ours})
 
 
+def line_config_from_jax(jax_cfg):
+    """A ``sdpl_slam_tpu.ops.lines.LineDetectConfig`` as this package's."""
+    from ..ops.lines import LineDetectConfig
+
+    return LineDetectConfig(**jax_cfg._asdict())
+
+
 def _host(x):
     """Arrays (numpy or JAX) -> numpy copies, recursively through dicts and
     lists; everything else deep-copied."""

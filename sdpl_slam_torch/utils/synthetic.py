@@ -2,7 +2,8 @@
 
 The numpy generator of the JAX package's tests (``tests/synthetic.py``),
 carried into the package so a machine without JAX can make frames; the
-parity test holds the two to the same arrays.  Large sequences are cached
+parity test holds the two to the same arrays (the grey image's strokes,
+drawn here in numpy and there with OpenCV, by overlap).  Large sequences are cached
 under ``build/synth_cache`` beside the package.
 
 Real KITTI/OMD data is not available in this environment (SURVEY.md section
@@ -74,6 +75,25 @@ def _obj_pose(cfg: SynthConfig, k: int, t: int) -> np.ndarray:
     drift[:3, 3] = np.array([0.05 * t * (1 if k % 2 else -1), 0.0,
                              cfg.obj_speed * t], np.float32)
     return drift @ base
+
+
+def draw_strokes(gray: np.ndarray, lines, value: int = 20) -> None:
+    """Rasterise each segment (sx, sy, ex, ey) into ``gray`` in place as a
+    2-px-wide stroke of ``value``: one sample per pixel of the longer axis
+    (endpoints truncated to integers), each stamped on the 2x2 block
+    whose top-left corner it is.  Pure numpy, so every machine draws the
+    same images (close to ``cv2.line(..., thickness=2)``, not equal to it
+    pixel for pixel)."""
+    H, W = gray.shape
+    for sx, sy, ex, ey in np.asarray(lines).reshape(-1, 4):
+        x0, y0, x1, y1 = int(sx), int(sy), int(ex), int(ey)
+        n = max(abs(x1 - x0), abs(y1 - y0)) + 1
+        xs = np.rint(np.linspace(x0, x1, n)).astype(np.int64)
+        ys = np.rint(np.linspace(y0, y1, n)).astype(np.int64)
+        for dy in (-1, 0):
+            for dx in (-1, 0):
+                gray[np.clip(ys + dy, 0, H - 1),
+                     np.clip(xs + dx, 0, W - 1)] = value
 
 
 @dataclasses.dataclass
@@ -304,13 +324,7 @@ class SynthSequence:
             for ddx in (0, 1):
                 gray[np.clip(dy + ddy, 0, H - 1),
                      np.clip(dx + ddx, 0, W - 1)] = val
-        try:
-            import cv2
-
-            for (sx, sy, ex, ey) in lines:
-                cv2.line(gray, (int(sx), int(sy)), (int(ex), int(ey)), 20, 2)
-        except Exception:
-            pass
+        draw_strokes(gray, lines)
 
         return SynthFrame(
             gray=gray,
@@ -408,8 +422,8 @@ def kitti_config(n_frames: int = 11, noise_flow: float = 0.2) -> SynthConfig:
 def slice_settings(cfg: SynthConfig) -> "Settings":
     """Settings of the tracking slice this package runs: the bench's
     reference caps (1200 background points, 800 per object, 400 static
-    lines, 8 objects), FAST in the loop (``use_sample_fea = 0``), lines
-    injected by the caller, synchronous frames, no batch BA."""
+    lines, 8 objects), FAST in the loop (``use_sample_fea = 0``),
+    synchronous frames, no batch BA."""
     s = synth_settings(cfg)
     s.max_track_point_bg = 1200
     s.max_track_point_obj = 800

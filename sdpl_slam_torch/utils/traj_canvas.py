@@ -14,10 +14,11 @@ draws per frame (reference src/Tracking.cc:836-907):
    (x, z), colored by tracking label through a fixed palette
    (:854-903).
 
-Same semantics here, numpy/cv2 on the host (cv2 only for text; the
-shapes are drawn with numpy so the canvas works without it).  The
-reference's imshow windows are intentionally NOT replicated (headless
-environments); the canvas itself is the API artifact.
+Same semantics here in numpy on the host, except the header's text: the
+band is drawn and left empty, since the package has no font rasteriser of
+its own and does not use OpenCV.  The reference's imshow windows are
+intentionally NOT replicated (headless environments); the canvas itself
+is the API artifact.
 """
 
 from __future__ import annotations
@@ -87,22 +88,6 @@ def draw_frame(imtraj: np.ndarray, cam_T_wc: np.ndarray,
     y = int(pos[2] * _SCALE) + _STA_Y
     _rect(imtraj, x, y, x + 5, y + 5, (255, 0, 0))       # red square, :846
     _rect(imtraj, 10, 30, 550, 60, (0, 0, 0), fill=True)  # header band
-
-    try:
-        import cv2
-
-        cv2.putText(imtraj, "Camera Trajectory (RED SQUARE)", (10, 30),
-                    cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1)
-        cv2.putText(
-            imtraj,
-            "x = %02fm y = %02fm z = %02fm" % (pos[0], pos[1], pos[2]),
-            (10, 50), cv2.FONT_HERSHEY_COMPLEX, 0.6, (255, 255, 255), 1,
-        )
-        cv2.putText(imtraj, "Object Trajectories (COLORED CIRCLES)",
-                    (10, 70), cv2.FONT_HERSHEY_COMPLEX, 0.6,
-                    (255, 255, 255), 1)
-    except Exception:
-        pass                        # text is cosmetic; shapes suffice
 
     for centre, label in zip(obj_centres, obj_labels):
         c = np.asarray(centre, np.float64).reshape(-1)

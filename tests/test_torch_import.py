@@ -23,12 +23,15 @@ SLICE_MODULES = (
     "sdpl_slam_torch",
     "sdpl_slam_torch.ops.lie", "sdpl_slam_torch.ops.geometry",
     "sdpl_slam_torch.ops.fast", "sdpl_slam_torch.ops.ransac",
+    "sdpl_slam_torch.ops.lines", "sdpl_slam_torch.ops.lsd_oracle",
     "sdpl_slam_torch.solvers.frame_solvers",
     "sdpl_slam_torch.solvers.batch_ba", "sdpl_slam_torch.solvers.ba_builder",
     "sdpl_slam_torch.models.frame", "sdpl_slam_torch.models.frame_host",
     "sdpl_slam_torch.models.map_state", "sdpl_slam_torch.models.tracklets",
     "sdpl_slam_torch.models.tracking", "sdpl_slam_torch.models.system",
     "sdpl_slam_torch.io.native", "sdpl_slam_torch.io.writers",
+    "sdpl_slam_torch.io.png", "sdpl_slam_torch.io.dataset",
+    "sdpl_slam_torch.io.prefetch",
     "sdpl_slam_torch.utils.config", "sdpl_slam_torch.utils.metrics",
     "sdpl_slam_torch.utils.plotting", "sdpl_slam_torch.utils.traj_canvas",
     "sdpl_slam_torch.utils.synthetic", "sdpl_slam_torch.utils.convert",
@@ -36,13 +39,23 @@ SLICE_MODULES = (
 )
 
 
+SCRIPTS = ("chip_smoke.py", "examples/run_sequence_torch.py",
+           "examples/make_demo_sequence_torch.py")
+
+
 def test_port_imports_without_jax():
+    """Every module of the package and the three scripts that drive it
+    import without JAX, the JAX package, OpenCV or PyYAML."""
     body = (
-        "import importlib, sys\n"
+        "import importlib, importlib.util, sys\n"
         f"for m in {SLICE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
+        f"for i, path in enumerate({SCRIPTS!r}):\n"
+        "    spec = importlib.util.spec_from_file_location('script%d' % i, path)\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
         "bad = sorted(m for m in sys.modules\n"
-        "             if m == 'jax' or m.startswith(('jax.', 'sdpl_slam_tpu', 'yaml')))\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'sdpl_slam_tpu',\n"
+        "                                    'yaml', 'cv2'))\n"
         "assert not bad, bad\n"
         "import torch\n"
         "assert not torch.backends.cuda.matmul.allow_tf32\n"
@@ -104,7 +117,6 @@ def test_batch_ba_settings_accepted(global_ba):
     ("run_local_ba", True, "A12"),        # with ba_schur = True
     ("run_global_ba", True, "A12"),
     ("run_global_ba", None, "A12"),       # None fires on KITTI
-    ("use_joint_optimization", False, "A3"),
 ])
 def test_unsupported_settings_raise(field, value, item):
     s = _settings()
@@ -124,13 +136,51 @@ def test_schur_without_batch_ba_runs():
     System(s, verbose=False, device="cpu")
 
 
-def test_lines_without_detections_raise():
+def _tiny_run(**over):
+    """Two 160x64 frames through a CPU ``System`` with nothing injected."""
     from sdpl_slam_torch.utils.synthetic import SynthSequence
 
-    cfg = SynthConfig(n_frames=1, width=160, height=64, fx=90.0, fy=90.0,
+    cfg = SynthConfig(n_frames=2, width=160, height=64, fx=90.0, fy=90.0,
                       cx=80.0, cy=32.0)
-    f = SynthSequence(cfg).frame(0)
-    s = System(slice_settings(cfg), verbose=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
-        s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
-                     0.0, 1)
+    seq = SynthSequence(cfg)
+    settings = slice_settings(cfg)
+    for k, v in over.items():
+        setattr(settings, k, v)
+    s = System(settings, verbose=False, device="cpu")
+    for t in range(2):
+        f = seq.frame(t)
+        pose = s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                            f.obj_rows, 0.1 * t, 2)
+    return s, pose
+
+
+def test_lines_without_detections_run_the_detector():
+    """``use_lines`` on and no ``line_detections=``: the line detector
+    runs in the loop, once a frame, on the tracker's device."""
+    s, pose = _tiny_run()
+    assert s.settings.use_lines and len(s.tracker.line_detect_ms) == 2
+    assert pose.shape == (4, 4) and torch.isfinite(torch.from_numpy(pose)).all()
+    off, _ = _tiny_run(use_lines=False)
+    assert off.tracker.line_detect_ms == []
+
+
+def test_nonjoint_setting_runs():
+    """``use_joint_optimization = False`` takes the pose-only solver
+    rather than raising."""
+    s, pose = _tiny_run(use_joint_optimization=False)
+    assert not s.settings.use_joint_optimization
+    assert pose.shape == (4, 4) and torch.isfinite(torch.from_numpy(pose)).all()
+
+
+def test_pipelined_default_is_off():
+    """The port's ``Settings`` default to synchronous frames, so a yaml
+    that does not name the key builds a ``System``."""
+    from sdpl_slam_torch.utils.config import Settings, load_settings
+
+    assert Settings().pipelined_tracking is False
+    s = load_settings(ROOT / "examples" / "kitti.yaml")
+    assert s.pipelined_tracking is False
+    System(ROOT / "examples" / "kitti.yaml", verbose=False, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            System(ROOT / "examples" / "kitti.yaml", verbose=False)

@@ -222,7 +222,13 @@ def test_numpy_generator_matches_test_generator(monkeypatch):
     """The port's generator renders the same arrays as tests/synthetic.py.
     Both render in float64 from the float32 camera poses of ``se3_exp``;
     the two frameworks round that one call differently (next test), so
-    here both sides take the same poses and must agree to 1e-6."""
+    here both sides take the same poses and must agree to 1e-6.  The grey
+    image's strokes are drawn in numpy here and with ``cv2.line`` there:
+    outside either stroke the images are equal, and the strokes are held
+    by overlap (at least 95 % of the port's stroke pixels lie inside
+    OpenCV's wider one, measured 98 %; intersection over union at least
+    0.6, measured 0.70)."""
+    import cv2
     import synthetic as test_synth
 
     monkeypatch.setattr(port_synth, "_cam_pose", test_synth._cam_pose)
@@ -232,7 +238,17 @@ def test_numpy_generator_matches_test_generator(monkeypatch):
     b = port_synth.SynthSequence(port_synth.SynthConfig(**kw))
     for t in range(3):
         fa, fb = a.frame(t), b.frame(t)
-        np.testing.assert_array_equal(fb.gray, fa.gray)
+        ours = np.zeros_like(fb.gray)
+        port_synth.draw_strokes(ours, fb.lines, 1)
+        theirs = np.zeros_like(fa.gray)
+        for sx, sy, ex, ey in fa.lines:
+            cv2.line(theirs, (int(sx), int(sy)), (int(ex), int(ey)), 1, 2)
+        either = (ours | theirs).astype(bool)
+        assert ours.sum() > 300
+        np.testing.assert_array_equal(fb.gray[~either], fa.gray[~either])
+        assert np.all(fb.gray[ours > 0] == 20)
+        assert (ours & theirs).sum() >= 0.95 * ours.sum()
+        assert (ours & theirs).sum() >= 0.6 * either.sum()
         np.testing.assert_array_equal(fb.mask, fa.mask)
         for k in ("depth", "flow", "gt_pose", "lines"):
             np.testing.assert_allclose(getattr(fb, k), getattr(fa, k),
