@@ -32,12 +32,23 @@
    frames, and the first frames agree with the same files run on the
    CPU.  The second window is replayed from a copy of the system under
    torch.profiler to count its kernel launches and device time.
-5. Injected phase (the path of the earlier slices, cut to 10 frames): the
+5. Resident phase: the first 20 of the same files tracked again with
+   ``resident_tracking = True`` (the whole frame on the card against device
+   state, FAST and the line detector inside the step, the map stream two
+   frames behind), the window BA at frame 19.  Checks:
+   one FAST launch a frame, label streams identical to the disk phase's
+   host run, camera poses of frames 0-18 within the North-star gates of
+   that run (relative motion within 1 % of the GT motion and 0.03 deg),
+   the RPE gates; one steady frame under
+   ``torch.cuda.set_sync_debug_mode("warn")`` may call no synchronising
+   operation beyond its LM loop-exit reads; one under torch.profiler for
+   its launches; the median wall of a call, LM reads a frame, peak memory.
+6. Injected phase (the path of the earlier slices, cut to 5 frames): the
    generator's frames straight into ``System(settings)`` with lines
    injected and no BA.
-6. Non-joint phase: 6 frames with ``use_joint_optimization = False``
+7. Non-joint phase: 6 frames with ``use_joint_optimization = False``
    (the pose-only camera solver), lines injected.
-7. BA phase: the final map with its camera poses perturbed, one window BA
+8. BA phase: the final map with its camera poses perturbed, one window BA
    (20 frames) twice on the card and once on the CPU: the card's two runs
    must be identical (its scatter-adds sum in a fixed order), and card and
    CPU must agree on the final cost and the window poses (tolerances
@@ -60,7 +71,8 @@ import time
 N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
-N_INJECTED = 10        # frames of the injected-lines path (no BA)
+N_RESIDENT = 20        # of those, tracked again in the resident mode
+N_INJECTED = 5         # frames of the injected-lines path (no BA)
 N_NONJOINT = 6         # frames of the non-joint path
 # Disk path gates.  The files store depth in 1 cm steps; on the first 12
 # of them on the CPU the JAX package reaches a camera RPE of 3.29 mm /
@@ -543,6 +555,8 @@ def disk_phase(root, out_dir):
                 raise AssertionError("frame %d: pose not a finite 4x4" % i)
             if i == N_CPU_CHECK - 1:       # before a window rewrites them
                 first = [p.copy() for p in system.map.camera_poses]
+            if i == LBA_FRAMES[0] - 1:     # the resident phase's reference
+                before_window = [p.copy() for p in system.map.camera_poses]
     finally:
         pf.close()
     launches = fast.fast_score_pyramid.launches
@@ -575,10 +589,160 @@ def disk_phase(root, out_dir):
                 rows.shape != (N_FRAMES, 17):
             raise AssertionError("result file %s: shape %s" % (name, rows.shape))
     return dict(system=system, loaded=loaded, replays=replays, first=first,
+                before_window=before_window,
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
                 line_ms=line_ms, n_lines=n_lines, launches=launches,
                 syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
                 decoder=png_decoder())
+
+
+def _pose_gates(ref, got, gt):
+    """North-star gates between two trajectories (camera-to-world poses):
+    per-frame relative motion within 1 % of the GT motion in translation
+    and 0.03 deg in rotation (from the antisymmetric part, float64).
+    Returns the worst (translation share, rotation deg)."""
+    import numpy as np
+
+    motion = np.median([np.linalg.norm(gt[f][:3, 3] - gt[f - 1][:3, 3])
+                        for f in range(1, len(gt))])
+    worst_t = worst_r = 0.0
+    for f in range(1, len(ref)):
+        rel = [np.linalg.inv(np.asarray(m[f - 1], np.float64))
+               @ np.asarray(m[f], np.float64) for m in (ref, got)]
+        d = np.linalg.inv(rel[0]) @ rel[1]
+        R = d[:3, :3]
+        w = 0.5 * np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0],
+                            R[1, 0] - R[0, 1]])
+        worst_t = max(worst_t, float(np.linalg.norm(d[:3, 3]) / motion))
+        worst_r = max(worst_r, float(np.degrees(
+            np.arcsin(min(np.linalg.norm(w), 1.0)))))
+    return worst_t, worst_r
+
+
+def resident_phase(root, loaded, host_map, host_before_window):
+    """The device-resident loop on the card: the first N_RESIDENT frames of
+    the disk phase's files with ``resident_tracking = True`` (KITTI scale,
+    reference caps, nothing injected), the window BA at frame 19 (the global
+    BA off: the disk phase runs it).  Checks one FAST launch a frame, the
+    label streams of the disk phase's host run, the camera poses before
+    the window within the North-star gates of that run, the RPE gates; one
+    steady frame under ``torch.cuda.set_sync_debug_mode("warn")`` may call
+    no synchronising operation but its LM loop-exit reads; one steady frame
+    under torch.profiler for its launches."""
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdpl_slam_torch.models.system import System
+    from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.utils import config
+
+    settings = config.load_settings(os.path.join(root, "settings.yaml"))
+    settings.resident_tracking = True
+    settings.run_global_ba = False
+    system = System(settings, verbose=False)
+    tr = system.tracker
+    frames = [loaded.frame(i) for i in range(N_RESIDENT)]
+
+    def track(i):
+        gray, depth, flow, mask = frames[i]
+        return system.track_rgbd(
+            gray, depth, flow, mask, loaded.gt_pose(i),
+            loaded.gt_obj_poses(i), float(loaded.timestamps[i]), N_RESIDENT)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fast.fast_score_pyramid.launches = 0
+    tr.lm_host_syncs = 0
+    call_ms, reads, snap = [], [], None
+    sync_frame, trace_frame = 10, 11
+    sync_calls = sync_sites = trace = None
+    t_loop = time.perf_counter()
+    for i in range(N_RESIDENT):
+        if i == N_RESIDENT - 1:
+            # frames 0..18 drained, before the window at 19 rewrites them
+            snap = [p.copy() for p in system.map.camera_poses]
+        r0 = tr.lm_host_syncs
+        t0 = time.perf_counter()
+        if i == sync_frame:
+            # the mode is switched outside the recording: switching it on
+            # reports a warning of its own
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    pose = track(i)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            hits = [w for w in caught if "synchroniz" in str(w.message)]
+            sync_calls = len(hits)
+            sites = {}
+            for w in hits:
+                key = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
+                sites[key] = sites.get(key, 0) + 1
+            sync_sites = sites
+        elif i == trace_frame:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                pose = track(i)
+                torch.cuda.synchronize()
+            events = prof.events()
+            dev = [e for e in events if e.device_type == DeviceType.CUDA
+                   and not e.name.startswith(("Memcpy", "Memset"))
+                   and e.name not in ("frame", "resident_step")]
+            trace = dict(
+                launches=sum(1 for e in events
+                             if e.device_type == DeviceType.CPU
+                             and "LaunchKernel" in e.name),
+                kernels=len(dev),
+                busy_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+        else:
+            pose = track(i)
+        call_ms.append((time.perf_counter() - t0) * 1e3)
+        reads.append(tr.lm_host_syncs - r0)
+        if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
+            raise AssertionError("resident frame %d: pose not a finite 4x4"
+                                 % i)
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t_loop
+    launches = fast.fast_score_pyramid.launches
+    peak = torch.cuda.max_memory_allocated()
+    if sync_calls > reads[sync_frame]:
+        raise AssertionError(
+            "resident frame %d: %d synchronising calls for %d LM exit reads "
+            "(%s)" % (sync_frame, sync_calls, reads[sync_frame], sync_sites))
+    rpe, n_obj = _check_run(system, N_RESIDENT, launches, "resident path",
+                            RPE_T_GATE, RPE_R_GATE)
+    m = system.map
+    runs = [(r["kind"], r["frame"]) for r in tr.ba_runs]
+    want = [("local", N_RESIDENT - 1)]
+    if runs != want:
+        raise AssertionError("resident path: batch BA runs %s, expected %s"
+                             % (runs, want))
+    host_labels = host_map.rm_labels[:N_RESIDENT - 1]
+    if m.rm_labels != host_labels or \
+            m.obj_stat != host_map.obj_stat[:N_RESIDENT - 1]:
+        raise AssertionError("resident path: label streams differ from the "
+                             "host run's: %s vs %s" % (m.rm_labels,
+                                                       host_labels))
+    n = len(host_before_window)
+    worst_t, worst_r = _pose_gates(host_before_window, snap[:n],
+                                   m.camera_poses_gt[:n])
+    if not (worst_t < 0.01 and worst_r < 0.03):
+        raise AssertionError("resident path: camera poses before the window "
+                             "part from the host run's by %.4f of the "
+                             "motion / %.4f deg" % (worst_t, worst_r))
+    steady = [x for i, x in enumerate(call_ms)
+              if 2 <= i < N_RESIDENT - 1 and i not in (sync_frame,
+                                                       trace_frame)]
+    return dict(rpe=rpe, n_obj=n_obj, launches=launches, peak=peak,
+                call_ms=call_ms, steady_ms=sorted(steady)[len(steady) // 2],
+                loop_s=loop_s, reads=reads, sync_calls=sync_calls,
+                sync_sites=sync_sites, trace=trace, worst_t=worst_t,
+                worst_r=worst_r, ba_runs=tr.ba_runs, n_poses=n)
 
 
 def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
@@ -920,6 +1084,41 @@ def main():
         print("  reference check: the first %d frames of the same files on "
               "the CPU, max camera pose difference %g (limit %g)"
               % (N_CPU_CHECK, err, CPU_POSE_ATOL))
+
+        t0 = time.perf_counter()
+        rs = resident_phase(root, loaded, res["system"].map,
+                            res["before_window"])
+        print("resident phase: the first %d of those files with "
+              "resident_tracking = True, nothing injected, window BA at "
+              "frame %d (%.1f s); %d object motions"
+              % (N_RESIDENT, N_RESIDENT - 1, time.perf_counter() - t0,
+                 rs["n_obj"]))
+        for name, (t_err, r_err) in rs["rpe"].items():
+            print("  camera RPE, %s poses: %.6f m / %.5f deg (gates %g m / "
+                  "%g deg)" % (name, t_err, r_err, RPE_T_GATE, RPE_R_GATE))
+        print("  label streams identical to the disk phase's host run; "
+              "camera poses of frames 0-%d against that run: worst %.5f of "
+              "the per-frame motion, %.5f deg (gates 0.01, 0.03 deg)"
+              % (rs["n_poses"] - 1, rs["worst_t"], rs["worst_r"]))
+        print("  wall ms per track_rgbd call (the map stream lags 2 frames, "
+              "so a call ends before its frame's copy lands): median %.2f "
+              "over the steady frames; all %s; loop %.1f s"
+              % (rs["steady_ms"], [round(x, 2) for x in rs["call_ms"]],
+                 rs["loop_s"]))
+        print("  LM host reads per frame %s; FAST launches %d (1 a frame); "
+              "peak device memory %.1f MiB" % (
+                  rs["reads"], rs["launches"], rs["peak"] / 2 ** 20))
+        print("  sync debug mode over frame 10: %d synchronising calls, %d "
+              "LM exit reads (%s)" % (rs["sync_calls"], rs["reads"][10],
+                                      rs["sync_sites"]))
+        t = rs["trace"]
+        print("  frame 11 under torch.profiler: %d kernel launches (runtime "
+              "calls), %d device kernels summing %.2f ms" % (
+                  t["launches"], t["kernels"], t["busy_ms"]))
+        for r in rs["ba_runs"]:
+            print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
+                  % (r["kind"], r["frame"], r["ms"], r["iterations"],
+                     r["cg_iterations"]))
 
     ms, n, (t_err, r_err) = generator_phase(
         seq, N_INJECTED, "injected path", RPE_T_GATE, RPE_R_GATE)

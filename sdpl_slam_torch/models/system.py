@@ -52,6 +52,8 @@ class System:
 
     @property
     def map(self):
+        # the resident mode's map stream lags: drain it for every reader
+        self.tracker.flush()
         return self.tracker.map
 
     def track_rgbd(

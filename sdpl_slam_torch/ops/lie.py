@@ -129,7 +129,7 @@ def se3_inv(T: torch.Tensor) -> torch.Tensor:
     Rt = R.transpose(-1, -2)
     Ti[..., :3, :3] = Rt
     Ti[..., :3, 3] = -(Rt @ t[..., None])[..., 0]
-    Ti[..., 3, 3] = 1.0
+    Ti[..., 3, 3].fill_(1.0)     # a fill: assigning a host float copies
     return Ti
 
 

@@ -36,6 +36,7 @@ computed: the reference matches lines by optical flow, never by descriptor.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -140,8 +141,11 @@ def betainc(a: torch.Tensor, b: torch.Tensor, x) -> torch.Tensor:
     / ``jax.scipy.special.betainc``): prefactor through ``lgamma``,
     continued fraction on the side of x = (a+1)/(a+b+2) where it
     converges fast."""
-    x = torch.as_tensor(x, dtype=a.dtype, device=a.device)
-    a, b, x = torch.broadcast_tensors(a, b, x)
+    if not torch.is_tensor(x):
+        # a fill on the device: a host scalar copied there would be a
+        # blocking copy
+        x = torch.full((), float(x), dtype=a.dtype, device=a.device)
+    a, b, x = torch.broadcast_tensors(a, b, x.to(a.dtype))
     xs = x.clamp(1e-30, 1.0 - 1e-7 if a.dtype == torch.float32 else 1.0 - 1e-16)
     log_bt = (torch.lgamma(a + b) - torch.lgamma(a) - torch.lgamma(b)
               + a * torch.log(xs) + b * torch.log1p(-xs))
@@ -249,6 +253,14 @@ def _ed_edges(mag, gx, gy, threshold: float, steps: int = 24):
 _BIN_ANGLES = np.radians([0.0, 45.0, 90.0, 135.0])
 
 
+@functools.lru_cache(maxsize=8)
+def _bin_dirs(device):
+    """cos / sin of the doubled histogram bin angles on ``device``, copied
+    there once (a copy per call would block the host on the card)."""
+    return tuple(torch.as_tensor(v(2 * _BIN_ANGLES), dtype=torch.float32,
+                                 device=device) for v in (np.cos, np.sin))
+
+
 def _tile_fit(edge, mag, tile: int, min_support: int, min_anisotropy: float,
               gx=None, gy=None, angle_tol_deg: float = 22.5):
     """Weighted-PCA segment fit per tile with LSD-style orientation
@@ -276,10 +288,7 @@ def _tile_fit(edge, mag, tile: int, min_support: int, min_anisotropy: float,
         ts2 = tiles((2.0 * gxc * gyc) / g2)           # sin(2*theta_grad)
         # dominant orientation by a magnitude-weighted 4-bin histogram
         # over [0, pi): one strong blob cannot hijack the tile
-        bin_c2 = torch.as_tensor(np.cos(2 * _BIN_ANGLES), dtype=torch.float32,
-                                 device=dev)
-        bin_s2 = torch.as_tensor(np.sin(2 * _BIN_ANGLES), dtype=torch.float32,
-                                 device=dev)
+        bin_c2, bin_s2 = _bin_dirs(dev)
         cos45 = float(np.cos(np.radians(45.0)))
         inbin = (tc2[..., None] * bin_c2 + ts2[..., None] * bin_s2) > cos45
         bin_w = torch.sum(tw[..., None] * inbin, dim=-2)        # (gh, gw, 4)
@@ -451,6 +460,14 @@ _NFA_COMBOS = ((1, 0, 0), (0, 1, 0), (0, 0, 1),
                (1, 1, 0), (0, 1, 1), (1, 0, 1), (1, 1, 1))
 
 
+@functools.lru_cache(maxsize=8)
+def _nfa_consts(device):
+    """The normal offsets (-1, 0, 1) and :data:`_NFA_COMBOS` on ``device``,
+    copied there once."""
+    return (torch.tensor([-1.0, 0.0, 1.0], device=device),
+            torch.tensor(_NFA_COMBOS, dtype=torch.float32, device=device))
+
+
 def _nfa_significance(uv4, gx, gy, cfg: LineDetectConfig):
     """Best of the 7 row-subset significances  -log10 B(n, k, p0) - logNT
     of each candidate; see :func:`_nfa_gate`.  Also returns the (k, n)
@@ -470,7 +487,7 @@ def _nfa_significance(uv4, gx, gy, cfg: LineDetectConfig):
     nrm = torch.stack([-u[:, 1], u[:, 0]], -1)                  # unit normal
     t = torch.linspace(0.0, 1.0, S, dtype=torch.float32, device=dev)
     base = s[:, None, :] + t[None, :, None] * d[:, None, :]     # (N, S, 2)
-    offs = torch.tensor([-1.0, 0.0, 1.0], device=dev)
+    offs, combos = _nfa_consts(dev)
     pts = base[:, :, None, :] + offs[None, None, :, None] * nrm[:, None, None, :]
     px = torch.floor(pts[..., 0]).to(torch.int64)
     py = torch.floor(pts[..., 1]).to(torch.int64)
@@ -488,7 +505,6 @@ def _nfa_significance(uv4, gx, gy, cfg: LineDetectConfig):
     scale = torch.clamp(length / float(S), max=1.0)[:, None]
     n_row = torch.sum(inb, dim=1).to(torch.float32) * scale     # (N, 3)
     k_row = torch.sum(aligned, dim=1).to(torch.float32) * scale
-    combos = torch.tensor(_NFA_COMBOS, dtype=torch.float32, device=dev)
     n = n_row @ combos.T                                        # (N, 7)
     k = k_row @ combos.T
     q = k / torch.clamp(n, min=1.0)

@@ -383,12 +383,12 @@ def solve_flow_pose(
             bg = -(torch.einsum("bmki,bmk,bm->bmi", Jlg, r_l, w_l)
                    + w_g[..., None] * r_g)
             Hxg = torch.einsum("bmki,bmkj,bm->bmij", Jlx, Jlg, w_l)
-            inv_Hgg = torch.linalg.inv(Hgg)
+            inv_Hgg = torch.linalg.inv_ex(Hgg)[0]
             Hxx = Hxx - torch.einsum("bmik,bmkl,bmjl->bij", Hxg, inv_Hgg, Hxg)
             bx = bx - torch.einsum("bmik,bmkl,bml->bi", Hxg, inv_Hgg, bg)
 
         Hxx = Hxx + lam[:, None, None] * eye6
-        dxi = torch.linalg.solve(Hxx, bx)
+        dxi = torch.linalg.solve_ex(Hxx, bx)[0]
         df = inv_hff[..., None] * (bf - torch.einsum("bnik,bi->bnk", Hxf, dxi))
         gain_den = (torch.sum(dxi * (lam_ * dxi + bx), -1)
                     + torch.sum(pvalid[..., None] * df * (lam_[..., None] * df + bf),

@@ -104,12 +104,13 @@ class Settings:
     # (the JAX package's tests show the pipelined map is the same).  True
     # is refused by ``models.tracking.check_supported``.
     pipelined_tracking: bool = False
-    # device-resident frame loop (models/resident.py): the whole per-frame
-    # pipeline (mask recovery -> selections -> solves -> renewal) runs as
-    # ONE jit against device-resident state; the host pushes images and
-    # receives map rows on a lagging async stream.  Host-path parity is
-    # enforced by tests/test_resident.py.  Requires bJoint and zero
-    # distortion; return value lags LAG frames (map is flushed on read).
+    # device-resident frame loop (models/resident.py): from the second
+    # frame on, the whole per-frame pipeline (mask recovery -> detectors ->
+    # selections -> solves -> renewal) runs on the tracker's device against
+    # device state, with no host read but the LM loop exits; the host
+    # pushes images and receives map rows two frames behind.  Host-path
+    # parity: tests/test_torch_resident.py.  Requires bJoint and zero
+    # distortion; the returned pose lags LAG frames (System.map drains).
     resident_tracking: bool = False
     # chained frame loop (models/chained.py): the resident device core
     # fed by host-SAMPLED inputs instead of dense planes -- the device
@@ -135,9 +136,9 @@ class Settings:
     # depth-3 gates).
     chained_depth: int = 2
     # resident-mode input compression: push f16 depth/flow + u8 mask
-    # (~3.3 MB/frame vs ~8 MB dense f32/i32).  Lossy at ~1e-3 relative
-    # (below sensor/flow noise); parity-gated by
-    # tests/test_resident.py::test_resident_compressed_input
+    # (~3.3 MB/frame vs ~8 MB dense f32/i32), cast back on the device.
+    # Lossy at ~1e-3 relative (below sensor/flow noise); gated by
+    # tests/test_torch_resident.py::test_resident_compressed_input
     resident_compress_input: bool = False
     min_object_points: int = 150      # Tracking.cc:2581
     min_pnp_inliers_obj: int = 50     # Tracking.cc:1387

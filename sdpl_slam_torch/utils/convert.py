@@ -5,7 +5,9 @@ tracker's per-sequence state -- the fields ``sdpl_slam_tpu``'s
 ``System.save_checkpoint`` pickles.  With these a JAX run can be stopped
 mid-sequence and continued here, and both can take the same next frame
 from the same state.  A JAX batch-BA graph converts too, so both packages
-can solve the same graph.  Nothing here imports JAX: objects are read by
+can solve the same graph, and a resident-mode device state converts both
+ways, so both resident steps can start from one state.  Nothing here
+imports JAX: objects are read by
 attribute, arrays through ``np.asarray``.
 """
 
@@ -109,3 +111,23 @@ def graph_from_jax(jax_graph, device):
             a = a.astype(np.int64)
         out[name] = torch.as_tensor(a, device=device)
     return BAGraph(**out)
+
+
+def resident_state_from_jax(jax_state, device):
+    """A ``sdpl_slam_tpu`` resident ``ResidentState`` as this package's
+    ``models.resident.ResidentState`` on ``device``, field by field with
+    the same dtypes (float32, int32, bool)."""
+    from ..models.resident import ResidentState
+
+    return ResidentState(**{
+        name: torch.as_tensor(np.array(getattr(jax_state, name)),
+                              device=device)
+        for name in ResidentState._fields})
+
+
+def resident_state_to_jax(state, jax_state_cls):
+    """The reverse of :func:`resident_state_from_jax`: ``jax_state_cls``
+    (the JAX package's ``ResidentState``) built from numpy copies of the
+    fields, which a JAX step takes as they are."""
+    return jax_state_cls(**{name: value.cpu().numpy()
+                            for name, value in state._asdict().items()})

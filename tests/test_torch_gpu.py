@@ -1,7 +1,8 @@
 """sdpl_slam_torch on a CUDA card: the FAST kernel against its plain
 version, the tracking slice on the card against the same slice on the
 CPU, the window BA on the card run twice, the line detector on the card
-against the CPU, and frames from disk with nothing injected.  Skipped where there is no card.  This file imports no JAX, so it
+against the CPU, frames from disk with nothing injected, and the resident
+loop against the host path.  Skipped where there is no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -118,6 +119,28 @@ def test_slice_on_card_matches_cpu(cuda, seq):
     for a, b in zip(maps["cuda"].camera_poses, maps["cpu"].camera_poses):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert maps["cuda"].rm_labels == maps["cpu"].rm_labels
+
+
+@pytest.mark.gpu
+def test_resident_on_card_matches_host(cuda, seq):
+    """Three KITTI-scale frames with ``resident_tracking`` on the card
+    against the host path on the card: identical label streams, poses to
+    f32 rounding, one FAST launch a frame."""
+    maps = {}
+    for resident in (False, True):
+        settings = slice_settings(seq.cfg)
+        settings.resident_tracking = resident
+        s = System(settings, verbose=False)
+        before = tf.fast_score_pyramid.launches
+        for t in range(3):
+            f = seq.frame(t)
+            s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                         f.obj_rows, t * 0.1, 3)
+        maps[resident] = s.map
+        assert tf.fast_score_pyramid.launches == before + 3
+    for a, b in zip(maps[True].camera_poses, maps[False].camera_poses):
+        np.testing.assert_allclose(a, b, atol=1e-4)
+    assert maps[True].rm_labels == maps[False].rm_labels
 
 
 @pytest.mark.gpu

@@ -29,6 +29,7 @@ SLICE_MODULES = (
     "sdpl_slam_torch.models.frame", "sdpl_slam_torch.models.frame_host",
     "sdpl_slam_torch.models.map_state", "sdpl_slam_torch.models.tracklets",
     "sdpl_slam_torch.models.tracking", "sdpl_slam_torch.models.system",
+    "sdpl_slam_torch.models.resident",
     "sdpl_slam_torch.io.native", "sdpl_slam_torch.io.writers",
     "sdpl_slam_torch.io.png", "sdpl_slam_torch.io.dataset",
     "sdpl_slam_torch.io.prefetch",
@@ -125,6 +126,10 @@ def test_unsupported_settings_raise(field, value, item):
         s.choose_data = 2                  # KITTI
     if item == "A12":
         s.ba_schur = True                  # the dense-Schur BA step
+    if item == "A10":
+        # the resident loop runs (ROADMAP A10 done); it needs the joint
+        # optimiser, as in the JAX package
+        s.use_joint_optimization = False
     with pytest.raises(NotImplementedError, match=item):
         System(s, verbose=False, device="cpu")
 
