@@ -43,16 +43,28 @@
    ``torch.cuda.set_sync_debug_mode("warn")`` may call no synchronising
    operation beyond its LM loop-exit reads; one under torch.profiler for
    its launches; the median wall of a call, LM reads a frame, peak memory.
-6. Injected phase (the path of the earlier slices, cut to 5 frames): the
+6. KITTI phase: 21 frames of the same generator written in the KITTI
+   layout (disparity PNGs, KITTI object rows, ``ChooseData: 2``,
+   ``ba_schur: 1``, the reference's boundary shrink), 20 tracked from the
+   files on the card with a trajectory canvas, nothing injected: the
+   window BA and the global BA at frame 19 by the dense-Schur step.
+   Checks: one FAST launch a frame, both BAs by the Schur step, the 7
+   result files and ``examples/evaluate_torch.py``'s scores of them under
+   the RPE gates, the GT object motions parsed from the KITTI rows against
+   the generator's, the canvas drawn; frames 0-3 again in the resident
+   mode against the host run (North-star gates, identical labels).
+7. Injected phase (the path of the earlier slices, cut to 5 frames): the
    generator's frames straight into ``System(settings)`` with lines
    injected and no BA.
-7. Non-joint phase: 6 frames with ``use_joint_optimization = False``
+8. Non-joint phase: 6 frames with ``use_joint_optimization = False``
    (the pose-only camera solver), lines injected.
-8. BA phase: the final map with its camera poses perturbed, one window BA
-   (20 frames) twice on the card and once on the CPU: the card's two runs
-   must be identical (its scatter-adds sum in a fixed order), and card and
-   CPU must agree on the final cost and the window poses (tolerances
-   below).
+9. BA phase: the final map with its camera poses perturbed, one window BA
+   (20 frames) by the CG step and by the dense-Schur step, each twice on
+   the card (the second under torch.profiler) and once on the CPU: each
+   step's two card runs must be identical (its scatter-adds sum in a fixed
+   order), card and CPU must agree on the final cost and the window poses
+   (tolerances below), and the Schur step's cost may be at most 1.05 times
+   the CG step's.
 
 Any failure raises (non-zero exit).  The last two lines of standard
 output are the kernels' JSON line and ``{"ok": true, "device": ...}``.
@@ -74,6 +86,7 @@ N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
 N_RESIDENT = 20        # of those, tracked again in the resident mode
 N_INJECTED = 5         # frames of the injected-lines path (no BA)
 N_NONJOINT = 6         # frames of the non-joint path
+N_KITTI = 20           # frames of the KITTI phase (window and global BA at 19)
 # Disk path gates.  The files store depth in 1 cm steps; on the first 12
 # of them on the CPU the JAX package reaches a camera RPE of 3.29 mm /
 # 0.0158 deg and this package 1.11 mm / 0.0142 deg (1.01 mm / 0.0157 deg
@@ -328,6 +341,30 @@ def _compact(seg):
     return packed[packed[:, 4] > 0.5, :4]
 
 
+def _events(prof):
+    """(on the card, name, start us, end us) of every event of a finished
+    torch.profiler run, read from its raw Kineto results: building the
+    profiler's own event list costs ~0.5 ms an event (~100 s for a traced
+    window BA), reading the raw results ~100 times less."""
+    from torch.autograd import DeviceType
+
+    return [(e.device_type() == DeviceType.CUDA, e.name(), e.start_ns() / 1e3,
+             e.end_ns() / 1e3) for e in prof.profiler.kineto_results.events()]
+
+
+def _launch_calls(events, lo=-math.inf, hi=math.inf):
+    """Kernel launches (runtime calls on the host) starting in [lo, hi]."""
+    return sum(1 for cuda, name, t0, _ in events
+               if not cuda and "LaunchKernel" in name and lo <= t0 <= hi)
+
+
+def _device_events(events, exclude=(), lo=-math.inf, hi=math.inf):
+    """Device events starting in [lo, hi], the names in ``exclude`` left
+    out: [(name, us)]."""
+    return [(name, t1 - t0) for cuda, name, t0, t1 in events
+            if cuda and lo <= t0 <= hi and name not in exclude]
+
+
 def _match_frac(a, b, tol):
     """Share of segments of ``a`` with a segment of ``b`` whose endpoints
     both lie within ``tol`` px, in either order (a segment is an unordered
@@ -378,7 +415,6 @@ def lines_phase(seq, line_cfg):
     frames; returns one row of figures per (frame, mode) and the gates
     that failed."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sdpl_slam_torch.ops import lines
@@ -429,18 +465,16 @@ def lines_phase(seq, line_cfg):
                                      ProfilerActivity.CUDA]) as prof:
                 run()
                 torch.cuda.synchronize()
-            events = prof.events()
-            launches = sum(1 for e in events
-                           if e.device_type == DeviceType.CPU
-                           and "LaunchKernel" in e.name)
-            dev = [e for e in events if e.device_type == DeviceType.CUDA]
+            events = _events(prof)
+            launches = _launch_calls(events)
+            dev = _device_events(events)
             rows.append(dict(
                 frame=t, mode=mode, strokes=len(f.lines), card=len(on_card),
                 cpu=len(on_cpu), fwd=fwd, back=back, along=along,
                 recall=recall,
                 wall_ms=sorted(walls)[2], launches=launches,
                 kernels=len(dev),
-                busy_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3))
+                busy_ms=sum(us for _, us in dev) / 1e3))
     return rows, failures
 
 
@@ -596,6 +630,195 @@ def disk_phase(root, out_dir):
                 decoder=png_decoder())
 
 
+def _gt_motions_err(m, cfg):
+    """Largest difference between the map's GT object motions, parsed from
+    the sequence's object rows, and the generator's own (body-frame
+    motion of each box between the frames of a pair); and how many were
+    compared."""
+    import numpy as np
+
+    from sdpl_slam_torch.utils.synthetic import _obj_pose
+
+    err, n = 0.0, 0
+    for f in range(1, m.n_frames):
+        for j, sem in enumerate(m.sm_labels[f - 1][1:], 1):
+            want = (np.linalg.inv(_obj_pose(cfg, sem - 1, f - 1))
+                    @ _obj_pose(cfg, sem - 1, f))
+            err = max(err, float(np.abs(m.rigid_motions_gt[f - 1][j]
+                                        - want).max()))
+            n += 1
+    return err, n
+
+
+def _window_sizes(m, settings, f0, f1):
+    """The sizes of the window graph over frames [f0, f1) of map ``m`` as
+    the window BA builds it: frames, motions, static points and lines,
+    dynamic point and line vertices, and the chains of each dynamic
+    family (``schur_ba.chains_from_links``)."""
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.solvers import ba_builder, schur_ba
+
+    g, _ = ba_builder.build_graph(
+        m, Intrinsics.from_config(settings), f0, f1,
+        min_track_len=settings.ba_tracklet_min_len,
+        motion_init_identity=False, use_lines=settings.use_lines,
+        device="cpu")
+    F = f1 - f0
+    chains = [len(schur_ba.chains_from_links(
+        n.shape[0], prev.numpy(), F, valid=valid.numpy()))
+        for n, prev, valid in ((g.Xd0, g.tern_prev, g.tern_valid),
+                               (g.Ld_U0, g.ltern_prev, g.ltern_valid))]
+    return ("%d frames, %d motions (%d dof), %d static points, %d static "
+            "lines, %d dynamic point vertices in %d chains, %d dynamic line "
+            "vertices in %d chains" % (
+                F, g.mot_T0.shape[0], 6 * (F + g.mot_T0.shape[0]),
+                g.Xs0.shape[0], g.Ls_U0.shape[0], g.Xd0.shape[0], chains[0],
+                g.Ld_U0.shape[0], chains[1]))
+
+
+def kitti_phase(seq, work):
+    """KITTI mode (``ChooseData: 2``) on the card: N_KITTI + 1 frames of the
+    disk phase's generator written in the KITTI layout (disparity PNGs,
+    KITTI object rows) with ``make_demo_sequence_torch.kitti_settings`` (the
+    bench's caps, window BA 20 / 4, the global BA by KITTI's default, the
+    dense-Schur step, the reference's boundary shrink), N_KITTI tracked
+    through the loader, the prefetcher and ``System(settings.yaml)`` with a
+    trajectory canvas, nothing injected.  Checks one FAST launch a frame,
+    the window and the global BA at the last frame both by the Schur step,
+    the 7 result files, ``examples/evaluate_torch.py``'s scores under the
+    RPE gates, the GT object motions parsed from the KITTI rows against the
+    generator's, and the canvas drawn.  Then frames 0-3 again with
+    ``resident_tracking`` (its KITTI branches: the disparity conversion on
+    the card, the boundary shrink in the step, the lagged GT rows) against
+    the host run's poses before the BA."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from sdpl_slam_torch.io.dataset import load_sequence
+    from sdpl_slam_torch.io.prefetch import FramePrefetcher
+    from sdpl_slam_torch.models.system import System
+    from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.solvers import schur_ba
+    from sdpl_slam_torch.utils import config
+
+    mk = _example("make_demo_sequence_torch")
+    root, out_dir = os.path.join(work, "kitti"), os.path.join(work, "kout")
+    want = mk.kitti_settings(seq.cfg)
+    t0 = time.perf_counter()
+    clipped = mk.write_sequence(root, seq, N_KITTI + 1,
+                                config.format_overrides(want), kitti=True)
+    write_s = time.perf_counter() - t0
+    got = config.load_settings(os.path.join(root, "settings.yaml"))
+    if dataclasses.asdict(got) != dataclasses.asdict(want):
+        raise AssertionError("KITTI settings.yaml does not load back")
+    system = System(os.path.join(root, "settings.yaml"), verbose=False)
+    loaded = load_sequence(root)
+    if loaded.n_frames != N_KITTI:
+        raise AssertionError("the loader sees %d KITTI frames"
+                             % loaded.n_frames)
+    traj = np.full((1000, 1000, 3), 255, np.uint8)
+    rs = schur_ba.run_ba_schur
+    fast.fast_score_pyramid.launches = 0
+    schur_before = (rs.iterations, rs.host_syncs)
+    frame_ms, first = [], None
+    pf = FramePrefetcher(loaded.frame, N_KITTI, lookahead=3)
+    try:
+        for i, (gray, depth, flow, mask) in pf:
+            if i == N_KITTI - 1:
+                # the frame that runs both BAs: its peak is theirs
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            pose = system.track_rgbd(
+                gray, depth, flow, mask, loaded.gt_pose(i),
+                loaded.gt_obj_poses(i), float(loaded.timestamps[i]),
+                loaded.n_frames, traj=traj)
+            torch.cuda.synchronize()
+            frame_ms.append((time.perf_counter() - t0) * 1e3)
+            if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
+                raise AssertionError("KITTI frame %d: pose not a finite 4x4"
+                                     % i)
+            if i == 3:
+                first = [p.copy() for p in system.map.camera_poses]
+    finally:
+        pf.close()
+    launches = fast.fast_score_pyramid.launches
+    ba_peak = torch.cuda.max_memory_allocated()
+    schur_its = rs.iterations - schur_before[0]
+    rpe, n_obj = _check_run(system, N_KITTI, launches, "KITTI path",
+                            RPE_T_GATE, RPE_R_GATE)
+    runs = [(r["kind"], r["frame"], r["step"])
+            for r in system.tracker.ba_runs]
+    want_runs = [("local", N_KITTI - 1, "schur"),
+                 ("global", N_KITTI - 1, "schur")]
+    if runs != want_runs:
+        raise AssertionError("KITTI path: batch BA runs %s, expected %s"
+                             % (runs, want_runs))
+    if schur_its != sum(r["iterations"] for r in system.tracker.ba_runs):
+        raise AssertionError("KITTI path: the Schur counter does not "
+                             "count the BAs' LM iterations")
+    m = system.map
+    system.save_results(out_dir)
+    for name in RESULT_FILES:
+        rows = np.loadtxt(os.path.join(out_dir, name), ndmin=2)
+        if not len(rows) or not np.all(np.isfinite(rows)):
+            raise AssertionError("KITTI result file %s: empty or not finite"
+                                 % name)
+    ev = _example("evaluate_torch").evaluate(out_dir)
+    for name, t_err, r_err, _, n in ev["camera"]:
+        if n != N_KITTI or not (t_err < RPE_T_GATE and r_err < RPE_R_GATE):
+            raise AssertionError(
+                "evaluate_torch: %s camera RPE %.5f m / %.4f deg over %d "
+                "frames" % (name, t_err, r_err, n))
+    if [r[0] for r in ev["camera"]] != ["initial", "refined"]:
+        raise AssertionError("evaluate_torch read %s" % ev["camera"])
+    gt_err, n_gt = _gt_motions_err(m, seq.cfg)
+    if n_gt == 0 or gt_err > 1e-4:
+        raise AssertionError("KITTI GT object motions: %d compared, worst "
+                             "%.3g (limit 1e-4)" % (n_gt, gt_err))
+    drawn = int((traj != 255).any(-1).sum())
+    red = int(((traj[:, :, 0] == 255) & (traj[:, :, 1] == 0)
+               & (traj[:, :, 2] == 0)).sum())
+    if not (drawn and red):
+        raise AssertionError("KITTI trajectory canvas: %d pixels drawn, %d "
+                             "red" % (drawn, red))
+
+    # frames 0-3 again in the resident mode, no BA
+    rset = dataclasses.replace(got, resident_tracking=True,
+                               run_local_ba=False, run_global_ba=False)
+    resident = System(rset, verbose=False)
+    fast.fast_score_pyramid.launches = 0
+    for i in range(4):
+        gray, depth, flow, mask = loaded.frame(i)
+        resident.track_rgbd(gray, depth, flow, mask, loaded.gt_pose(i),
+                            loaded.gt_obj_poses(i),
+                            float(loaded.timestamps[i]), 4)
+    res_launches = fast.fast_score_pyramid.launches
+    if res_launches != 4:
+        raise AssertionError("KITTI resident: %d FAST launches in 4 frames"
+                             % res_launches)
+    rm = resident.map
+    if rm.rm_labels != m.rm_labels[:3] or rm.obj_stat != m.obj_stat[:3]:
+        raise AssertionError("KITTI resident: label streams differ from the "
+                             "host run's: %s vs %s" % (rm.rm_labels,
+                                                       m.rm_labels[:3]))
+    worst_t, worst_r = _pose_gates(first, rm.camera_poses,
+                                   m.camera_poses_gt[:4])
+    if not (worst_t < 0.01 and worst_r < 0.03):
+        raise AssertionError("KITTI resident: camera poses part from the "
+                             "host run's by %.4f of the motion / %.4f deg"
+                             % (worst_t, worst_r))
+    return dict(sizes=_window_sizes(m, got, 0, N_KITTI),
+                rpe=rpe, n_obj=n_obj, launches=launches, clipped=clipped,
+                write_s=write_s, frame_ms=frame_ms,
+                ba_runs=system.tracker.ba_runs, ba_peak=ba_peak, ev=ev,
+                gt_err=gt_err, n_gt=n_gt, drawn=drawn, red=red,
+                res_launches=res_launches, worst_t=worst_t, worst_r=worst_r,
+                res_labels=rm.rm_labels)
+
+
 def _pose_gates(ref, got, gt):
     """North-star gates between two trajectories (camera-to-world poses):
     per-frame relative motion within 1 % of the GT motion in translation
@@ -633,7 +856,6 @@ def resident_phase(root, loaded, host_map, host_before_window):
 
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from sdpl_slam_torch.models.system import System
@@ -689,16 +911,12 @@ def resident_phase(root, loaded, host_map, host_before_window):
                                      ProfilerActivity.CUDA]) as prof:
                 pose = track(i)
                 torch.cuda.synchronize()
-            events = prof.events()
-            dev = [e for e in events if e.device_type == DeviceType.CUDA
-                   and not e.name.startswith(("Memcpy", "Memset"))
-                   and e.name not in ("frame", "resident_step")]
-            trace = dict(
-                launches=sum(1 for e in events
-                             if e.device_type == DeviceType.CPU
-                             and "LaunchKernel" in e.name),
-                kernels=len(dev),
-                busy_ms=sum(e.time_range.elapsed_us() for e in dev) / 1e3)
+            events = _events(prof)
+            dev = [(n, us) for n, us in _device_events(
+                events, ("frame", "resident_step"))
+                if not n.startswith(("Memcpy", "Memset"))]
+            trace = dict(launches=_launch_calls(events), kernels=len(dev),
+                         busy_ms=sum(us for _, us in dev) / 1e3)
         else:
             pose = track(i)
         call_ms.append((time.perf_counter() - t0) * 1e3)
@@ -794,45 +1012,62 @@ def window_trace(replay, loaded):
     """The second window replayed under torch.profiler: kernel launches
     (runtime calls on the host), device kernels and their summed time
     inside the window's ``local_ba`` range."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run = window_replay(replay, loaded, LBA_FRAMES[-1])
-    events = prof.events()
-    rng = [e for e in events if e.name == "local_ba"
-           and e.device_type == DeviceType.CPU]
+    events = _events(prof)
+    rng = [(t0, t1) for cuda, name, t0, t1 in events
+           if name == "local_ba" and not cuda]
     if len(rng) != 1:
         raise AssertionError("the trace holds %d local_ba ranges" % len(rng))
-    lo, hi = rng[0].time_range.start, rng[0].time_range.end
+    lo, hi = rng[0]
+    dev = _device_events(events, ("local_ba", "frame"), lo, hi)
+    kernels = [us for n, us in dev if not n.startswith(("Memcpy", "Memset"))]
+    return dict(launch_calls=_launch_calls(events, lo, hi),
+                kernels=len(kernels), copies=len(dev) - len(kernels),
+                busy_ms=sum(kernels) / 1e3, wall_ms=(hi - lo) / 1e3, run=run)
 
-    def inside(e):
-        return lo <= e.time_range.start <= hi
 
-    launch_calls = sum(1 for e in events if e.device_type == DeviceType.CPU
-                       and "LaunchKernel" in e.name and inside(e))
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and inside(e) and e.name not in ("local_ba", "frame")]
-    kernels = [e for e in dev if not e.name.startswith(("Memcpy", "Memset"))]
-    return dict(launch_calls=launch_calls, kernels=len(kernels),
-                copies=len(dev) - len(kernels),
-                busy_ms=sum(e.time_range.elapsed_us() for e in kernels) / 1e3,
-                wall_ms=(hi - lo) / 1e3, run=run)
+def _traced(fn):
+    """``fn()`` under torch.profiler on the card: its result and its kernel
+    launches (runtime calls), device kernels, their summed time and the
+    wall time of the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = _events(prof)
+    dev = [us for n, us in _device_events(events)
+           if not n.startswith(("Memcpy", "Memset"))]
+    return out, dict(launches=_launch_calls(events), kernels=len(dev),
+                     wall_ms=wall_ms, busy_ms=sum(dev) / 1e3)
 
 
 def ba_phase(cuda_map, settings):
-    """One window BA on a perturbed copy of the final map, twice on the
-    card and once on the CPU: the card's runs identical, card and CPU
-    final costs within BA_COST_RTOL and window poses within BA_POSE_ATOL,
-    and both nearer the ground truth than the perturbed start."""
+    """One window BA on a perturbed copy of the final map, by the CG step
+    and by the dense-Schur step (``ba_schur``), each twice on the card (the
+    second under torch.profiler) and once on the CPU: each step's card runs
+    identical, card and CPU final costs within BA_COST_RTOL and window
+    poses within BA_POSE_ATOL, both nearer the ground truth than the
+    perturbed start, and the Schur step's final cost at most 1.05 times the
+    CG step's (JAX's criterion, tests/test_schur_ba.py).  Returns, per
+    step, each run's figures."""
     import copy
+    import dataclasses
 
     import numpy as np
     import torch
 
     from sdpl_slam_torch.ops.geometry import Intrinsics
-    from sdpl_slam_torch.solvers import ba_builder
+    from sdpl_slam_torch.solvers import ba_builder, schur_ba
     from sdpl_slam_torch.solvers import batch_ba as bb
     from sdpl_slam_torch.utils import metrics
 
@@ -846,51 +1081,92 @@ def ba_phase(cuda_map, settings):
     gt = m.camera_poses_gt[f0:]
     t_before, _ = metrics.camera_rpe(m.camera_poses[f0:], gt)
     K = Intrinsics.from_config(settings)
+    print("BA phase: window graph %s" % _window_sizes(m, settings, f0,
+                                                       m.n_frames))
+    rb, rs = bb.run_ba, schur_ba.run_ba_schur
     out = {}
-    for run, dev in (("cuda", "cuda"), ("cuda again", "cuda"),
-                     ("cpu", "cpu")):
-        mm = copy.deepcopy(m)
-        rb = bb.run_ba
-        before = (rb.iterations, rb.cg_iterations, rb.host_syncs)
-        t0 = time.perf_counter()
-        cost = ba_builder.partial_batch_optimization(
-            mm, K, BA_WINDOW, settings, use_lines=settings.use_lines,
-            device=dev)
-        torch.cuda.synchronize()
-        out[run] = dict(
-            cost=cost, ms=(time.perf_counter() - t0) * 1e3,
-            iterations=rb.iterations - before[0],
-            cg_iterations=rb.cg_iterations - before[1],
-            host_syncs=rb.host_syncs - before[2],
-            poses=np.stack(mm.camera_poses[f0:]),
-            rpe=metrics.camera_rpe(mm.camera_poses[f0:], gt)[0])
-    a, b, again = out["cuda"], out["cpu"], out["cuda again"]
-    same = (a["cost"] == again["cost"] and
-            a["cg_iterations"] == again["cg_iterations"] and
-            np.array_equal(a["poses"], again["poses"]))
-    pose_err = float(np.abs(a["poses"] - b["poses"]).max())
-    cost_err = abs(a["cost"] - b["cost"]) / max(abs(b["cost"]), 1e-20)
-    print("BA phase: window of %d frames, camera poses perturbed by 5 cm "
-          "(RPE %.5f m); card cost %.9g in %d LM / %d CG iterations, "
-          "%d host reads, %.1f ms (RPE %.6f m); CPU cost %.9g in %d LM / "
-          "%d CG iterations, %.1f ms (RPE %.6f m); cost rel diff %.3g "
-          "(limit %g), window pose max diff %.3g (limit %g); the card's "
-          "second run %.1f ms, %s the first" % (
-              BA_WINDOW, t_before, a["cost"], a["iterations"],
-              a["cg_iterations"], a["host_syncs"], a["ms"], a["rpe"],
-              b["cost"], b["iterations"], b["cg_iterations"], b["ms"],
-              b["rpe"], cost_err, BA_COST_RTOL, pose_err, BA_POSE_ATOL,
-              again["ms"], "identical to" if same else "DIFFERENT from"))
-    if not same:
-        raise AssertionError("BA phase: two card runs on the same input "
-                             "differ")
-    if not (np.isfinite(a["cost"]) and cost_err <= BA_COST_RTOL):
-        raise AssertionError("BA phase: card and CPU costs differ")
-    if pose_err > BA_POSE_ATOL:
-        raise AssertionError("BA phase: card and CPU window poses differ")
-    if not (a["rpe"] < t_before and b["rpe"] < t_before):
-        raise AssertionError("BA phase: the window BA did not pull the "
-                             "perturbed poses back")
+    for step in ("cg", "schur"):
+        cfg = dataclasses.replace(settings, ba_schur=step == "schur")
+        out[step] = runs = {}
+        for run, dev in (("cuda", "cuda"), ("cuda again", "cuda"),
+                         ("cpu", "cpu")):
+            mm = copy.deepcopy(m)
+            before = (rb.iterations + rs.iterations, rb.cg_iterations,
+                      rb.host_syncs + rs.host_syncs, rs.iterations)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+
+            def solve():
+                return ba_builder.partial_batch_optimization(
+                    mm, K, BA_WINDOW, cfg, use_lines=cfg.use_lines,
+                    device=dev)
+
+            t0 = time.perf_counter()
+            if run == "cuda again":
+                cost, trace = _traced(solve)
+            else:
+                cost, trace = solve(), None
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            runs[run] = dict(
+                cost=cost, ms=ms, trace=trace,
+                iterations=rb.iterations + rs.iterations - before[0],
+                cg_iterations=rb.cg_iterations - before[1],
+                host_syncs=rb.host_syncs + rs.host_syncs - before[2],
+                schur=rs.iterations > before[3],
+                peak=torch.cuda.max_memory_allocated() - base,
+                poses=np.stack(mm.camera_poses[f0:]),
+                rpe=metrics.camera_rpe(mm.camera_poses[f0:], gt)[0])
+        a, b, again = runs["cuda"], runs["cpu"], runs["cuda again"]
+        same = (a["cost"] == again["cost"] and
+                a["iterations"] == again["iterations"] and
+                a["cg_iterations"] == again["cg_iterations"] and
+                np.array_equal(a["poses"], again["poses"]))
+        pose_err = float(np.abs(a["poses"] - b["poses"]).max())
+        cost_err = abs(a["cost"] - b["cost"]) / max(abs(b["cost"]), 1e-20)
+        tr = again["trace"]
+        print("BA phase, %s step: window of %d frames, camera poses "
+              "perturbed by 5 cm (RPE %.5f m); card cost %.9g in %d LM / %d "
+              "CG iterations, %d host reads, %.1f ms (RPE %.6f m), BA peak "
+              "device memory %.1f MiB above the %.1f MiB held before; CPU "
+              "cost %.9g in %d LM / %d CG iterations, %.1f ms (RPE %.6f m); "
+              "cost rel diff %.3g (limit %g), window pose max diff %.3g "
+              "(limit %g); the card's second run %s the first, under "
+              "torch.profiler: %.1f ms wall, %d kernel launches (%.1f per "
+              "LM iteration), %d device kernels summing %.2f ms (device "
+              "busy %.1f %%)" % (
+                  step, BA_WINDOW, t_before, a["cost"], a["iterations"],
+                  a["cg_iterations"], a["host_syncs"], a["ms"], a["rpe"],
+                  a["peak"] / 2 ** 20, base / 2 ** 20, b["cost"],
+                  b["iterations"], b["cg_iterations"], b["ms"], b["rpe"],
+                  cost_err, BA_COST_RTOL, pose_err, BA_POSE_ATOL,
+                  "identical to" if same else "DIFFERENT from",
+                  tr["wall_ms"], tr["launches"],
+                  tr["launches"] / max(again["iterations"], 1),
+                  tr["kernels"], tr["busy_ms"],
+                  100 * tr["busy_ms"] / tr["wall_ms"]))
+        if any(r["schur"] != (step == "schur") for r in runs.values()):
+            raise AssertionError("BA phase: the %s step was not taken"
+                                 % step)
+        if not same:
+            raise AssertionError("BA phase: two card runs of the %s step on "
+                                 "the same input differ" % step)
+        if not (np.isfinite(a["cost"]) and cost_err <= BA_COST_RTOL):
+            raise AssertionError("BA phase: card and CPU costs of the %s "
+                                 "step differ" % step)
+        if pose_err > BA_POSE_ATOL:
+            raise AssertionError("BA phase: card and CPU window poses of the "
+                                 "%s step differ" % step)
+        if not (a["rpe"] < t_before and b["rpe"] < t_before):
+            raise AssertionError("BA phase: the %s step did not pull the "
+                                 "perturbed poses back" % step)
+    ratio = out["schur"]["cuda"]["cost"] / out["cg"]["cuda"]["cost"]
+    print("BA phase: Schur final cost / CG final cost on the card %.6f "
+          "(limit 1.05)" % ratio)
+    if not ratio <= 1.05:
+        raise AssertionError("BA phase: the Schur step's final cost is %.4f "
+                             "times the CG step's" % ratio)
     return out
 
 
@@ -1119,6 +1395,50 @@ def main():
             print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
                   % (r["kind"], r["frame"], r["ms"], r["iterations"],
                      r["cg_iterations"]))
+
+        t0 = time.perf_counter()
+        kt = kitti_phase(seq, work)
+        fm = sorted(kt["frame_ms"][1:-1])
+        print("KITTI phase: %d frames written in the KITTI layout (disparity "
+              "PNGs at factor 256, %d pixels clipped to 16 bits; KITTI object "
+              "rows) in %.1f s; %d tracked through load_sequence, "
+              "FramePrefetcher and System(settings.yaml) with ChooseData 2, "
+              "ba_schur 1, the reference's boundary shrink and a trajectory "
+              "canvas, nothing injected (%.1f s); %d object motions" % (
+                  N_KITTI + 1, kt["clipped"], kt["write_s"], N_KITTI,
+                  time.perf_counter() - t0, kt["n_obj"]))
+        for name, (t_err, r_err) in kt["rpe"].items():
+            print("  camera RPE, %s poses: %.6f m / %.5f deg (gates %g m / "
+                  "%g deg)" % (name, t_err, r_err, RPE_T_GATE, RPE_R_GATE))
+        for name, t_err, r_err, ate, n in kt["ev"]["camera"]:
+            print("  evaluate_torch.py on the result files: camera %s RPE "
+                  "%.6f m / %.5f deg, ATE %.6f m (%d frames)"
+                  % (name, t_err, r_err, ate, n))
+        for name, (t_err, r_err, per) in kt["ev"]["objects"].items():
+            print("  evaluate_torch.py: objects %s motion error %.6f m / "
+                  "%.5f deg over %d observations" % (
+                      name, t_err, r_err, sum(v[2] for v in per.values())))
+        print("  tracking ms per frame: median %.2f over frames 1-%d; FAST "
+              "launches %d (1 a frame)" % (
+                  fm[len(fm) // 2], N_KITTI - 2, kt["launches"]))
+        print("  window graph at frame %d: %s" % (N_KITTI - 1, kt["sizes"]))
+        for r in kt["ba_runs"]:
+            print("  %s BA at frame %d by the %s step: %.1f ms, %d LM "
+                  "iterations, %d host reads" % (
+                      r["kind"], r["frame"], r["step"], r["ms"],
+                      r["iterations"], r["host_syncs"]))
+        print("  peak device memory over frame %d (its window and global "
+              "Schur BAs included): %.1f MiB" % (N_KITTI - 1,
+                                                 kt["ba_peak"] / 2 ** 20))
+        print("  GT object motions parsed from the KITTI rows against the "
+              "generator's: worst %.3g over %d (limit 1e-4); trajectory "
+              "canvas: %d pixels drawn, %d red" % (
+                  kt["gt_err"], kt["n_gt"], kt["drawn"], kt["red"]))
+        print("  frames 0-3 again with resident_tracking: %d FAST launches, "
+              "labels %s identical to the host run's, camera poses worst "
+              "%.5f of the per-frame motion, %.5f deg (gates 0.01, 0.03 deg)"
+              % (kt["res_launches"], kt["res_labels"], kt["worst_t"],
+                 kt["worst_r"]))
 
     ms, n, (t_err, r_err) = generator_phase(
         seq, N_INJECTED, "injected path", RPE_T_GATE, RPE_R_GATE)

@@ -42,6 +42,7 @@ from ..ops import lines as line_ops
 from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import frame_solvers as fs
+from ..utils import metrics
 from ..utils.device import scatter_add
 from . import frame as fr
 
@@ -1406,5 +1407,16 @@ class ResidentDriver:
                 if not name.startswith(("lane_", "n_point"))}
         tr._push_map(rows, pose_np, pose_gt, prev_pose_gt, o["velocity"],
                      obj_meta, p["timing"])
+        # the live accuracy tripwire: the per-frame camera RPE against GT
+        # every ``rpe_print_every`` frames as the rows drain, like the
+        # reference's per-frame cout (Tracking.cc:1190)
+        m, every = tr.map, tr.cfg.rpe_print_every
+        if every and m.n_frames >= 2 and (m.n_frames - 1) % every == 0:
+            t_e, r_e = metrics.camera_rpe(m.camera_poses[-2:],
+                                          m.camera_poses_gt[-2:])
+            print("[frame %4d] camera RPE: t=%.4f m  r=%.4f deg  "
+                  "(pt inliers %d)" % (m.n_frames - 1, t_e, r_e,
+                                       int(o["n_point_inliers"])),
+                  flush=True)
         self._last_pose = pose_np
         tr.velocity = o["velocity"]

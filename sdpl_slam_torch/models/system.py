@@ -2,11 +2,16 @@
 (reference include/System.h:41-52, src/System.cc:22-64), as in
 ``sdpl_slam_tpu.models.system``.
 
-``System(settings, device=...).track_rgbd(...)`` + ``save_results(dir)``.
+``System(settings, device=...).track_rgbd(...)`` + ``save_results(dir)``,
+``save_checkpoint`` / ``load_checkpoint`` and ``start_profiler_trace`` /
+``stop_profiler_trace``.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import pickle
+import time
 from pathlib import Path
 from typing import List, Optional
 
@@ -14,7 +19,7 @@ import numpy as np
 import torch
 
 from ..io import writers
-from ..utils import metrics
+from ..utils import convert, metrics
 from ..utils.config import KITTI, RGBD, Settings, load_settings
 from ..utils.device import checked_device
 from .tracking import Tracking, check_supported
@@ -112,6 +117,64 @@ class System:
                 traj, self.map.camera_poses[-1], centres, labels
             )
         return pose
+
+    def save_checkpoint(self, path: str | Path) -> None:
+        """Write the whole mid-run state (the map's history and the
+        tracker's per-sequence state) so a long sequence can resume in a
+        fresh ``System``.  The reference has none (SURVEY.md section 5).
+        The file is a pickle of builtins and numpy arrays only, so it names
+        no class of this package or the JAX one.  In the resident mode the
+        map stream is drained and the device state written back first; the
+        resumed run enters the driver again from that host state."""
+        t = self.tracker
+        t.flush()
+        t.sync_host_state()
+        tracker = convert.tracker_state(t)
+        m = tracker.pop("map")
+        blob = dict(tracker=tracker, map={f.name: getattr(m, f.name)
+                                          for f in dataclasses.fields(m)})
+        with open(path, "wb") as fh:
+            pickle.dump(convert.to_plain(blob), fh,
+                        protocol=pickle.HIGHEST_PROTOCOL)
+
+    def load_checkpoint(self, path: str | Path) -> None:
+        """Resume from a :meth:`save_checkpoint` file: the next
+        ``track_rgbd`` continues the sequence where it was written."""
+        with open(path, "rb") as fh:
+            blob = pickle.load(fh)
+        self.tracker.sync_host_state()
+        convert.tracker_state_from_jax(self.tracker,
+                                       dict(blob["tracker"], map=blob["map"]))
+
+    # --- device-level tracing (SURVEY.md section 5, tracing row): the
+    # reference has only the wall-clock slots (kept in Map.frame_times);
+    # this adds a torch.profiler trace of host ops and device kernels ---
+    def start_profiler_trace(self, log_dir: str | Path) -> None:
+        """Begin a ``torch.profiler`` trace (host ops, and the card's
+        kernels when the tracker is on the card) to be written under
+        ``log_dir`` by :meth:`stop_profiler_trace`."""
+        acts = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            acts.append(torch.profiler.ProfilerActivity.CUDA)
+        self._trace_dir = Path(log_dir)
+        self._profiler = torch.profiler.profile(activities=acts)
+        self._profiler.start()
+
+    def stop_profiler_trace(self) -> Path:
+        """Finish the tracked frames (the resident map stream drains), stop
+        the trace and write it as a Chrome trace (Perfetto, TensorBoard)
+        under the ``log_dir`` of :meth:`start_profiler_trace`; returns its
+        path."""
+        self.tracker.flush()
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        self._trace_dir.mkdir(parents=True, exist_ok=True)
+        path = self._trace_dir / ("sdpl_slam_torch.%d.pt.trace.json"
+                                  % time.time_ns())
+        prof.export_chrome_trace(str(path))
+        return path
 
     def save_results(self, out_dir: str | Path, plots: bool = False) -> None:
         """Write the 7 result txt files + timing summary

@@ -32,13 +32,16 @@ dispatch one frame ahead hide a transport this package does not have.
 
 With ``resident_tracking`` every frame after the first runs through
 :class:`.resident.ResidentDriver`: the whole frame on the device against
-device state, the map rows two frames behind.
+device state, the map rows two frames behind.  Where the driver is not
+eligible (no joint optimiser, or lens distortion) the frames take the host
+path, as in the JAX package.
 
 Not in this package yet, and refused by :func:`check_supported` rather
-than run differently: the dense-Schur BA step (``ba_schur``) and the
-chained / pipelined modes of the JAX package.  The host path runs each
-frame synchronously; the JAX package's own tests show its pipelining
-changes no result.
+than run differently: the chained / pipelined modes of the JAX package.
+The host path runs each frame synchronously; the JAX package's own tests
+show its pipelining changes no result.  The batch BAs take the dense-Schur
+step or the CG step by the JAX package's rule (``ba_builder``), and
+``ba_runs`` records which.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import batch_ba as bb
 from ..solvers import frame_solvers as fs
+from ..solvers import schur_ba
 from ..utils.config import KITTI, OMD, Settings
 from ..utils.device import checked_device
 from . import frame as fr
@@ -79,17 +83,10 @@ def check_supported(cfg: Settings) -> None:
     """Raise ``NotImplementedError`` (naming the ROADMAP item) for settings
     this package cannot run yet; it never runs them differently."""
     refused = [
-        (cfg.resident_tracking and not ResidentDriver.eligible(cfg),
-         "resident_tracking without the joint optimiser or with lens "
-         "distortion (ROADMAP A10: the JAX package falls back to its host "
-         "path there)"),
         (cfg.chained_tracking, "chained_tracking (ROADMAP A14)"),
         (cfg.pipelined_tracking,
          "pipelined_tracking (ROADMAP A5: the port runs synchronously; "
          "set pipelined_tracking=False)"),
-        (cfg.ba_schur and (cfg.run_local_ba or _global_ba_on(cfg)),
-         "ba_schur=True with a batch BA on (ROADMAP A12, the dense-Schur "
-         "step; set ba_schur=False)"),
     ]
     for bad, what in refused:
         if bad:
@@ -660,19 +657,23 @@ class Tracking:
     def _batch_ba(self, kind: str, entry, *args, frame=None) -> float:
         """Run one batch BA entry point on the map; log it in ``ba_runs``
         (at ``frame``, by default the current one) and return its wall ms.
-        The run is a ``<kind>_ba`` profiler range."""
-        rb = bb.run_ba
-        before = (rb.iterations, rb.cg_iterations, rb.host_syncs)
+        The entry's step ("schur" or "cg") is read off the two LM loops'
+        counters.  The run is a ``<kind>_ba`` profiler range."""
+        rb, rs = bb.run_ba, schur_ba.run_ba_schur
+        before = (rb.iterations, rb.cg_iterations, rb.host_syncs,
+                  rs.iterations, rs.host_syncs)
         t0 = time.perf_counter()
         with torch.profiler.record_function(kind + "_ba"):
             entry(self.map, self.K, *args, self.cfg,
                   use_lines=self.cfg.use_lines, device=self.device)
         ms = (time.perf_counter() - t0) * 1e3
+        schur_its = rs.iterations - before[3]
         self.ba_runs.append(dict(
             kind=kind, frame=self.f_id if frame is None else frame, ms=ms,
-            iterations=rb.iterations - before[0],
+            step="schur" if schur_its else "cg",
+            iterations=rb.iterations - before[0] + schur_its,
             cg_iterations=rb.cg_iterations - before[1],
-            host_syncs=rb.host_syncs - before[2]))
+            host_syncs=rb.host_syncs - before[2] + rs.host_syncs - before[4]))
         return ms
 
     # ------------------------------------------------------------------

@@ -56,12 +56,9 @@ def _host(x):
     return copy.deepcopy(x)
 
 
-def jax_tracker_state(jax_system) -> dict:
-    """The state ``save_checkpoint`` pickles, read off a JAX ``System``
-    (flushed first, so a pipelined frame in flight is finished)."""
-    t = jax_system.tracker
-    t.flush()
-    t.sync_host_state()
+def tracker_state(t) -> dict:
+    """The :data:`TRACKER_FIELDS` and the map of a tracker of either
+    package, by reference; the caller flushes it first."""
     return dict(
         f_id=t.f_id, max_id=t.max_id, velocity=t.velocity,
         origin_inv=t.origin_inv, last=t.last, last_meta=t.last_meta,
@@ -71,10 +68,38 @@ def jax_tracker_state(jax_system) -> dict:
     )
 
 
+def jax_tracker_state(jax_system) -> dict:
+    """The state ``save_checkpoint`` pickles, read off a JAX ``System``
+    (flushed first, so a pipelined frame in flight is finished)."""
+    t = jax_system.tracker
+    t.flush()
+    t.sync_host_state()
+    return tracker_state(t)
+
+
+_PLAIN = (type(None), bool, int, float, str, np.ndarray, np.generic)
+
+
+def to_plain(x):
+    """``x`` with tensors as numpy arrays, through dicts, lists and
+    tuples; raises on any other class, so a pickle of the result names only
+    builtins and numpy."""
+    if isinstance(x, dict):
+        return {k: to_plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_plain(v) for v in x)
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    if isinstance(x, _PLAIN):
+        return x
+    raise TypeError("not a builtin or numpy value: %r" % type(x))
+
+
 def tracker_state_from_jax(tracker, state: dict) -> None:
     """Load ``state`` (the :data:`TRACKER_FIELDS` plus ``map``, as
-    :func:`jax_tracker_state` returns or ``save_checkpoint`` pickles under
-    "tracker" / "map") into a port ``Tracking``.  The carried state is host
+    :func:`jax_tracker_state` returns or this package's
+    ``System.save_checkpoint`` writes, the map as an object or a dict of
+    its fields) into a port ``Tracking``.  The carried state is host
     numpy in both packages; the tracker builds its device tensors from it
     at the next frame."""
     missing = [k for k in TRACKER_FIELDS + ("map",) if k not in state]
@@ -93,7 +118,8 @@ def tracker_state_from_jax(tracker, state: dict) -> None:
     src = state["map"]
     m = MapState()
     for f in dataclasses.fields(MapState):
-        setattr(m, f.name, _host(getattr(src, f.name)))
+        setattr(m, f.name, _host(src[f.name] if isinstance(src, dict)
+                                 else getattr(src, f.name)))
     tracker.map = m
 
 

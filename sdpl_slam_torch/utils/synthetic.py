@@ -382,6 +382,29 @@ class SynthSequence:
         return np.asarray(out, np.float32).reshape(-1, 4)
 
 
+def kitti_obj_rows(cfg: SynthConfig, t: int, rows) -> List[np.ndarray]:
+    """The generator's object rows of frame ``t`` (``rows``, OMD-style:
+    world position) as KITTI rows, ``[frame, id, B(4), t_camera(3), yaw]``
+    with a zero box: ``ObjPoseParsingKT`` reads them as ``Ry(yaw + pi/2)``
+    at ``t_camera`` (Tracking.cc:3134-3241), which the tracker lifts to the
+    world by the GT camera pose, so the row's yaw is the object's rotation
+    in the camera (the camera only yaws here, and the boxes do not rotate)
+    less the reference's pi/2."""
+    T_cw = np.linalg.inv(_cam_pose(cfg, t).astype(np.float64))
+    out = []
+    for row in rows:
+        L_c = T_cw @ _obj_pose(cfg, int(row[1]) - 1, t).astype(np.float64)
+        R = L_c[:3, :3]
+        yaw = np.arctan2(R[0, 2], R[0, 0])
+        if not np.allclose(R, [[np.cos(yaw), 0, np.sin(yaw)], [0, 1, 0],
+                               [-np.sin(yaw), 0, np.cos(yaw)]], atol=1e-6):
+            raise ValueError("object %d at frame %d turns about more than "
+                             "the camera's y axis" % (int(row[1]), t))
+        out.append(np.array([t, row[1], 0, 0, 0, 0, *L_c[:3, 3],
+                             yaw - np.pi / 2], np.float32))
+    return out
+
+
 def synth_settings(cfg: SynthConfig) -> "Settings":
     from .config import OMD, Settings
 

@@ -3,13 +3,14 @@ and the BA entry points on maps the JAX package tracked (the 640x192
 synthetic sequence, 7 frames, as in tests/test_batch_ba.py) -- twins of
 tests/test_batch_ba.py and tests/test_ba_golden.py.
 
-The golden fixture's exact fixed point is held on what the matrix-free CG
-step determines: cameras, camera odometry, static points and the static
-line.  Its motions and dynamic structure (three ternary chains under
-near-L1 Huber costs) need the exact dense-Schur step, which JAX's golden
-test asks for (``ba_schur``) and which is ROADMAP A12 here.  JAX's own CG
-path (``ba_schur = False``) stops as far from them: the tests show that,
-and hold the port's motions and dynamic structure against that path's.
+The golden fixture's exact fixed point is held here on what the
+matrix-free CG step determines: cameras, camera odometry, static points and
+the static line.  Its motions and dynamic structure (three ternary chains
+under near-L1 Huber costs) need the exact dense-Schur step, which JAX's
+golden test asks for (``ba_schur``); tests/test_torch_schur_ba.py holds the
+port's Schur path to them.  JAX's own CG path (``ba_schur = False``) stops
+as far from them: the tests show that, and hold the port's CG motions and
+dynamic structure against that path's.
 """
 
 import copy
@@ -171,13 +172,27 @@ def test_golden_fixed_point(golden_jax_cg, dtype, tol):
                                    err_msg=k)
 
 
-def test_schur_step_refused(tracked):
+def test_schur_step_refused(tracked, f32_run):
+    """``ba_schur = True`` was refused until the dense-Schur step was
+    ported (ROADMAP A12); now the full BA takes it on the tracked map (7
+    frames, 30 dof a frame and motion, far under ``MAX_DENSE_DOF``), and
+    in 10 LM iterations lands at a cost no higher than the CG step's 20
+    (JAX's criterion, tests/test_schur_ba.py: within 1.05x)."""
+    from sdpl_slam_torch.solvers import schur_ba as tsb
+
     sys, cfg, K = tracked
     cfg = copy.deepcopy(cfg)
     cfg.ba_schur = True
-    with pytest.raises(NotImplementedError, match="A12"):
-        tbb.full_batch_optimization(copy.deepcopy(sys.map), K, cfg,
-                                    device="cpu")
+    cfg.ba_global_iterations = 10
+    m = copy.deepcopy(sys.map)
+    before = tsb.run_ba_schur.iterations
+    cost = tbb.full_batch_optimization(m, K, cfg, device="cpu")
+    assert tsb.run_ba_schur.iterations > before
+    _, c_cg = f32_run
+    assert np.isfinite(cost) and cost <= 1.05 * c_cg + 1e-9, (cost, c_cg)
+    t0, _ = metrics.camera_rpe(sys.map.camera_poses, m.camera_poses_gt)
+    t1, _ = metrics.camera_rpe(m.camera_poses_rf, m.camera_poses_gt)
+    assert t1 < max(2.5 * t0, 0.01), (t0, t1)
 
 
 def _short_cfg(dtype="float32"):

@@ -1,8 +1,8 @@
 """sdpl_slam_torch on a CUDA card: the FAST kernel against its plain
 version, the tracking slice on the card against the same slice on the
 CPU, the window BA on the card run twice, the line detector on the card
-against the CPU, frames from disk with nothing injected, and the resident
-loop against the host path.  Skipped where there is no card.  This file imports no JAX, so it
+against the CPU, frames from disk with nothing injected, the resident loop
+against the host path, and the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -174,6 +174,42 @@ def test_window_ba_on_card_is_deterministic(cuda, seq):
     assert (c0, i0, g0) == (c1, i1, g1)
     np.testing.assert_array_equal(p0, p1)
     np.testing.assert_array_equal(x0, x1)
+
+
+@pytest.mark.gpu
+def test_schur_window_on_card_is_deterministic(cuda, seq):
+    """The window BA by the dense-Schur step (``ba_schur``) on the same map
+    twice on the card: identical cost, iterations and poses; and the
+    card's final cost within 1e-2 of the CPU's (chip_smoke.BA_COST_RTOL:
+    two sound float32 LM runs stop some steps apart under the window's
+    1e-3 gain rule)."""
+    import copy
+    import dataclasses
+
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.solvers import ba_builder, schur_ba
+
+    s = System(slice_settings(seq.cfg), verbose=False, device="cuda")
+    for t in range(3):
+        f = seq.frame(t)
+        s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
+                     t * 0.1, 3, line_detections=f.lines)
+    cfg = dataclasses.replace(s.settings, ba_schur=True)
+    K = Intrinsics.from_config(cfg)
+    runs = []
+    for dev in ("cuda", "cuda", "cpu"):
+        m = copy.deepcopy(s.map)
+        before = schur_ba.run_ba_schur.iterations
+        cost = ba_builder.partial_batch_optimization(
+            m, K, 3, cfg, use_lines=cfg.use_lines, device=dev)
+        runs.append((cost, schur_ba.run_ba_schur.iterations - before,
+                     np.stack(m.camera_poses), np.stack(m.dyn_3d[-1])))
+    (c0, i0, p0, x0), (c1, i1, p1, x1), (c2, i2, _, _) = runs
+    assert np.isfinite(c0) and i0 > 0 and i2 > 0
+    assert (c0, i0) == (c1, i1)
+    np.testing.assert_array_equal(p0, p1)
+    np.testing.assert_array_equal(x0, x1)
+    assert abs(c0 - c2) <= 1e-2 * abs(c2), (c0, c2)
 
 
 def _match_frac(a, b, tol=0.5):

@@ -120,6 +120,10 @@ def test_batch_ba_settings_accepted(global_ba):
     ("run_global_ba", None, "A12"),       # None fires on KITTI
 ])
 def test_unsupported_settings_raise(field, value, item):
+    """The chained and pipelined modes (A14, A5) are refused.  The A10 and
+    A12 cases were refused too and now run: ``resident_tracking`` without
+    the joint optimiser takes the host path, as in the JAX package (ROADMAP
+    C1), and ``ba_schur`` with a batch BA on takes the dense-Schur step."""
     s = _settings()
     setattr(s, field, value)
     if field == "run_global_ba" and value is None:
@@ -127,9 +131,11 @@ def test_unsupported_settings_raise(field, value, item):
     if item == "A12":
         s.ba_schur = True                  # the dense-Schur BA step
     if item == "A10":
-        # the resident loop runs (ROADMAP A10 done); it needs the joint
-        # optimiser, as in the JAX package
         s.use_joint_optimization = False
+    if item in ("A10", "A12"):
+        system = System(s, verbose=False, device="cpu")
+        assert getattr(system.settings, field) is value
+        return
     with pytest.raises(NotImplementedError, match=item):
         System(s, verbose=False, device="cpu")
 

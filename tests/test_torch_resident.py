@@ -245,22 +245,68 @@ def test_map_stream_lags_and_host_write_back():
 
 
 def test_check_supported_and_device():
+    """Without the joint optimiser or with lens distortion the driver is
+    not eligible, and ``resident_tracking`` runs the host path, as in the
+    JAX package (it was refused until ROADMAP C1 was repaired): a non-joint
+    resident run gives the host non-joint run's poses and labels.  The
+    chained mode stays refused."""
     s = synth_settings(SynthConfig())
     s.resident_tracking = True
     check_supported(s)
     assert res.ResidentDriver.eligible(s)
     for over in (dict(use_joint_optimization=False), dict(k1=0.1),
                  dict(resident_tracking=False, chained_tracking=True)):
-        bad = synth_settings(SynthConfig())
-        bad.resident_tracking = True
+        other = synth_settings(SynthConfig())
+        other.resident_tracking = True
         for k, v in over.items():
-            setattr(bad, k, v)
-        with pytest.raises(NotImplementedError):
-            check_supported(bad)
+            setattr(other, k, v)
+        if "chained_tracking" in over:
+            with pytest.raises(NotImplementedError, match="A14"):
+                check_supported(other)
+            continue
+        check_supported(other)
+        assert not res.ResidentDriver.eligible(other)
+    host = _run_system(False, n_frames=4, use_joint_optimization=False)
+    resident = _run_system(True, n_frames=4, use_joint_optimization=False)
+    assert resident.tracker._res is None
+    a, b = host.map, resident.map
+    assert a.n_frames == b.n_frames == 3
+    for x, y in zip(a.camera_poses, b.camera_poses):
+        np.testing.assert_array_equal(x, y)
+    for name in ("rm_labels", "sm_labels", "obj_stat", "dyn_label"):
+        va, vb = getattr(a, name), getattr(b, name)
+        assert len(va) == len(vb), name
+        for x, y in zip(va, vb):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), name)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             System(s, verbose=False)
     assert System(s, verbose=False, device="cpu").device.type == "cpu"
+
+
+def test_rpe_print_every(capsys):
+    """``rpe_print_every``: the resident drain prints the camera RPE of the
+    newest frame pair every N frames, in the JAX resident drain's format
+    (sdpl_slam_tpu/models/resident.py:1854-1866), and nothing when 0."""
+    import re
+
+    sys_ = _run_system(True, rpe_print_every=2)
+    m = sys_.map
+    lines = [ln for ln in capsys.readouterr().out.splitlines()
+             if "camera RPE" in ln]
+    fmt = re.compile(r"^\[frame +(\d+)\] camera RPE: t=(\d+\.\d{4}) m  "
+                     r"r=(\d+\.\d{4}) deg  \(pt inliers (\d+)\)$")
+    got = [fmt.match(ln) for ln in lines]
+    assert all(got), lines
+    assert [int(g.group(1)) for g in got] == [2, 4]
+    for g in got:
+        f = int(g.group(1))
+        t_e, r_e = metrics.camera_rpe(m.camera_poses[f - 1:f + 1],
+                                      m.camera_poses_gt[f - 1:f + 1])
+        assert g.group(2) == "%.4f" % t_e and g.group(3) == "%.4f" % r_e
+        assert int(g.group(4)) > 0
+    _run_system(True, rpe_print_every=0)
+    assert "camera RPE" not in capsys.readouterr().out
 
 
 def test_resident_system_matches_jax():
