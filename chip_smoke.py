@@ -43,7 +43,23 @@
    ``torch.cuda.set_sync_debug_mode("warn")`` may call no synchronising
    operation beyond its LM loop-exit reads; one under torch.profiler for
    its launches; the median wall of a call, LM reads a frame, peak memory.
-6. KITTI phase: 21 frames of the same generator written in the KITTI
+6. Pipelined phase: the same 20 files with ``pipelined_tracking = True``
+   and the next frames' images as hints (frame t+1's detectors run on a
+   side stream during frame t; a frame's finish runs at the start of the
+   next call), the window BA at frame 19.  Checks: one FAST launch a frame,
+   label streams, camera poses and object motions before the window equal
+   to the disk phase's synchronous run bit for bit; the median wall of a
+   call against that run's, the detector ms left on the calling thread,
+   LM reads a frame.
+7. Chained phase: the same 20 files with ``chained_tracking = True`` at
+   depth 2 (the device core fed by host-sampled bundles; the next two
+   frames' detectors ahead), the window BA at 19; then frames 0-9 at depth
+   3.  Checks: one FAST launch a frame, the RPE gates, camera poses before
+   the window within tests/test_chained.py's gates of the disk phase's host
+   run; beside the resident phase: wall a call, launches and device ms of
+   one frame under torch.profiler, bytes pushed a frame, synchronising
+   calls of one frame under the sync debug mode, peak memory.
+8. KITTI phase: 21 frames of the same generator written in the KITTI
    layout (disparity PNGs, KITTI object rows, ``ChooseData: 2``,
    ``ba_schur: 1``, the reference's boundary shrink), 20 tracked from the
    files on the card with a trajectory canvas, nothing injected: the
@@ -53,12 +69,12 @@
    the RPE gates, the GT object motions parsed from the KITTI rows against
    the generator's, the canvas drawn; frames 0-3 again in the resident
    mode against the host run (North-star gates, identical labels).
-7. Injected phase (the path of the earlier slices, cut to 5 frames): the
+9. Injected phase (the path of the earlier slices, cut to 5 frames): the
    generator's frames straight into ``System(settings)`` with lines
    injected and no BA.
-8. Non-joint phase: 6 frames with ``use_joint_optimization = False``
+10. Non-joint phase: 6 frames with ``use_joint_optimization = False``
    (the pose-only camera solver), lines injected.
-9. BA phase: the final map with its camera poses perturbed, one window BA
+11. BA phase: the final map with its camera poses perturbed, one window BA
    (20 frames) by the CG step and by the dense-Schur step, each twice on
    the card (the second under torch.profiler) and once on the CPU: each
    step's two card runs must be identical (its scatter-adds sum in a fixed
@@ -83,7 +99,7 @@ import time
 N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
-N_RESIDENT = 20        # of those, tracked again in the resident mode
+N_RESIDENT = 20        # of those, again: resident, pipelined, chained
 N_INJECTED = 5         # frames of the injected-lines path (no BA)
 N_NONJOINT = 6         # frames of the non-joint path
 N_KITTI = 20           # frames of the KITTI phase (window and global BA at 19)
@@ -589,8 +605,10 @@ def disk_phase(root, out_dir):
                 raise AssertionError("frame %d: pose not a finite 4x4" % i)
             if i == N_CPU_CHECK - 1:       # before a window rewrites them
                 first = [p.copy() for p in system.map.camera_poses]
-            if i == LBA_FRAMES[0] - 1:     # the resident phase's reference
+            if i == LBA_FRAMES[0] - 1:     # the device loops' reference
                 before_window = [p.copy() for p in system.map.camera_poses]
+                before_motions = [[x.copy() for x in row]
+                                  for row in system.map.rigid_motions]
     finally:
         pf.close()
     launches = fast.fast_score_pyramid.launches
@@ -623,7 +641,7 @@ def disk_phase(root, out_dir):
                 rows.shape != (N_FRAMES, 17):
             raise AssertionError("result file %s: shape %s" % (name, rows.shape))
     return dict(system=system, loaded=loaded, replays=replays, first=first,
-                before_window=before_window,
+                before_window=before_window, before_motions=before_motions,
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
                 line_ms=line_ms, n_lines=n_lines, launches=launches,
                 syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
@@ -842,51 +860,48 @@ def _pose_gates(ref, got, gt):
     return worst_t, worst_r
 
 
-def resident_phase(root, loaded, host_map, host_before_window):
-    """The device-resident loop on the card: the first N_RESIDENT frames of
-    the disk phase's files with ``resident_tracking = True`` (KITTI scale,
-    reference caps, nothing injected), the window BA at frame 19 (the global
-    BA off: the disk phase runs it).  Checks one FAST launch a frame, the
-    label streams of the disk phase's host run, the camera poses before
-    the window within the North-star gates of that run, the RPE gates; one
-    steady frame under ``torch.cuda.set_sync_debug_mode("warn")`` may call
-    no synchronising operation but its LM loop-exit reads; one steady frame
-    under torch.profiler for its launches."""
+def _loop_run(system, loaded, frames, hints=False, sync_frame=None,
+              trace_frame=None, trace_exclude=()):
+    """Track ``frames`` (the first ``len(frames)`` of the loaded files)
+    through ``system`` on the card, the next frames' images passed as hints
+    when ``hints``.  Just before the last frame, the map is read (a reader
+    drains and finishes every frame before it): its camera poses and
+    motions are the run's snapshot before that frame's window BA.  Frame
+    ``sync_frame`` runs under ``torch.cuda.set_sync_debug_mode("warn")``,
+    frame ``trace_frame`` under torch.profiler.  Returns the measurements;
+    FAST launches and LM reads are counted over this run alone."""
     import warnings
 
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
-    from sdpl_slam_torch.utils import config
 
-    settings = config.load_settings(os.path.join(root, "settings.yaml"))
-    settings.resident_tracking = True
-    settings.run_global_ba = False
-    system = System(settings, verbose=False)
+    n = len(frames)
     tr = system.tracker
-    frames = [loaded.frame(i) for i in range(N_RESIDENT)]
 
     def track(i):
         gray, depth, flow, mask = frames[i]
+        nxt = [frames[k][0] if hints and k < n else None
+               for k in (i + 1, i + 2)]
         return system.track_rgbd(
             gray, depth, flow, mask, loaded.gt_pose(i),
-            loaded.gt_obj_poses(i), float(loaded.timestamps[i]), N_RESIDENT)
+            loaded.gt_obj_poses(i), float(loaded.timestamps[i]), n,
+            next_image=nxt[0], next_image2=nxt[1])
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
     tr.lm_host_syncs = 0
-    call_ms, reads, snap = [], [], None
-    sync_frame, trace_frame = 10, 11
-    sync_calls = sync_sites = trace = None
+    call_ms, reads = [], []
+    snap = motions = sync_calls = sync_sites = trace = None
     t_loop = time.perf_counter()
-    for i in range(N_RESIDENT):
-        if i == N_RESIDENT - 1:
-            # frames 0..18 drained, before the window at 19 rewrites them
-            snap = [p.copy() for p in system.map.camera_poses]
+    for i in range(n):
+        if i == n - 1:
+            m = system.map
+            snap = [p.copy() for p in m.camera_poses]
+            motions = [[x.copy() for x in row] for row in m.rigid_motions]
         r0 = tr.lm_host_syncs
         t0 = time.perf_counter()
         if i == sync_frame:
@@ -901,20 +916,19 @@ def resident_phase(root, loaded, host_map, host_before_window):
                 torch.cuda.set_sync_debug_mode("default")
             hits = [w for w in caught if "synchroniz" in str(w.message)]
             sync_calls = len(hits)
-            sites = {}
+            sync_sites = {}
             for w in hits:
                 key = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
-                sites[key] = sites.get(key, 0) + 1
-            sync_sites = sites
+                sync_sites[key] = sync_sites.get(key, 0) + 1
         elif i == trace_frame:
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 pose = track(i)
                 torch.cuda.synchronize()
             events = _events(prof)
-            dev = [(n, us) for n, us in _device_events(
-                events, ("frame", "resident_step"))
-                if not n.startswith(("Memcpy", "Memset"))]
+            dev = [(name, us) for name, us in _device_events(
+                events, ("frame",) + tuple(trace_exclude))
+                if not name.startswith(("Memcpy", "Memset"))]
             trace = dict(launches=_launch_calls(events), kernels=len(dev),
                          busy_ms=sum(us for _, us in dev) / 1e3)
         else:
@@ -922,45 +936,187 @@ def resident_phase(root, loaded, host_map, host_before_window):
         call_ms.append((time.perf_counter() - t0) * 1e3)
         reads.append(tr.lm_host_syncs - r0)
         if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
-            raise AssertionError("resident frame %d: pose not a finite 4x4"
-                                 % i)
+            raise AssertionError("frame %d: pose not a finite 4x4" % i)
     torch.cuda.synchronize()
-    loop_s = time.perf_counter() - t_loop
-    launches = fast.fast_score_pyramid.launches
-    peak = torch.cuda.max_memory_allocated()
-    if sync_calls > reads[sync_frame]:
-        raise AssertionError(
-            "resident frame %d: %d synchronising calls for %d LM exit reads "
-            "(%s)" % (sync_frame, sync_calls, reads[sync_frame], sync_sites))
-    rpe, n_obj = _check_run(system, N_RESIDENT, launches, "resident path",
-                            RPE_T_GATE, RPE_R_GATE)
-    m = system.map
-    runs = [(r["kind"], r["frame"]) for r in tr.ba_runs]
-    want = [("local", N_RESIDENT - 1)]
+    steady = [x for i, x in enumerate(call_ms)
+              if 2 <= i < n - 1 and i not in (sync_frame, trace_frame)]
+    return dict(call_ms=call_ms, reads=reads, snap=snap, motions=motions,
+                sync_calls=sync_calls, sync_sites=sync_sites, trace=trace,
+                loop_s=time.perf_counter() - t_loop,
+                launches=fast.fast_score_pyramid.launches,
+                peak=torch.cuda.max_memory_allocated(),
+                steady_ms=sorted(steady)[len(steady) // 2])
+
+
+def _loop_settings(root, **over):
+    """The disk phase's settings with the global BA off (the disk phase
+    runs it) and ``over`` set."""
+    from sdpl_slam_torch.utils import config
+
+    settings = config.load_settings(os.path.join(root, "settings.yaml"))
+    settings.run_global_ba = False
+    for k, v in over.items():
+        setattr(settings, k, v)
+    return settings
+
+
+def _check_loop(system, run, n, what, host_map, host_before_window,
+                window=True):
+    """Gates every device-loop phase shares: one FAST launch a frame, the
+    RPE gates, the window BA at the last frame when ``window``, no more
+    synchronising calls in the sync-debug frame than its LM exit reads.
+    Returns (rpe, object motions, label streams equal to the host run's,
+    the host run's poses before the window it is held to)."""
+    rpe, n_obj = _check_run(system, n, run["launches"], what, RPE_T_GATE,
+                            RPE_R_GATE, refined=window)
+    runs = [(r["kind"], r["frame"]) for r in system.tracker.ba_runs]
+    want = [("local", n - 1)] if window else []
     if runs != want:
-        raise AssertionError("resident path: batch BA runs %s, expected %s"
-                             % (runs, want))
-    host_labels = host_map.rm_labels[:N_RESIDENT - 1]
-    if m.rm_labels != host_labels or \
-            m.obj_stat != host_map.obj_stat[:N_RESIDENT - 1]:
+        raise AssertionError("%s: batch BA runs %s, expected %s"
+                             % (what, runs, want))
+    if (run["sync_calls"] is not None
+            and run["sync_calls"] > run["reads"][SYNC_FRAME]):
+        raise AssertionError(
+            "%s frame %d: %d synchronising calls for %d LM exit reads (%s)"
+            % (what, SYNC_FRAME, run["sync_calls"], run["reads"][SYNC_FRAME],
+               run["sync_sites"]))
+    m = system.map
+    labels = (m.rm_labels == host_map.rm_labels[:n - 1]
+              and m.obj_stat == host_map.obj_stat[:n - 1])
+    return rpe, n_obj, labels, host_before_window[:n - 1]
+
+
+SYNC_FRAME, TRACE_FRAME = 10, 11   # device loops: sync debug, profiler
+
+
+def resident_phase(root, loaded, host_map, host_before_window):
+    """The device-resident loop on the card: the first N_RESIDENT frames of
+    the disk phase's files with ``resident_tracking = True`` (KITTI scale,
+    reference caps, nothing injected), the window BA at frame 19 (the global
+    BA off: the disk phase runs it).  Checks one FAST launch a frame, the
+    label streams of the disk phase's host run, the camera poses before
+    the window within the North-star gates of that run, the RPE gates; one
+    steady frame under ``torch.cuda.set_sync_debug_mode("warn")`` may call
+    no synchronising operation but its LM loop-exit reads; one steady frame
+    under torch.profiler for its launches."""
+    from sdpl_slam_torch.models.system import System
+
+    system = System(_loop_settings(root, resident_tracking=True),
+                    verbose=False)
+    frames = [loaded.frame(i) for i in range(N_RESIDENT)]
+    run = _loop_run(system, loaded, frames, sync_frame=SYNC_FRAME,
+                    trace_frame=TRACE_FRAME, trace_exclude=("resident_step",))
+    rpe, n_obj, labels, ref = _check_loop(
+        system, run, N_RESIDENT, "resident path", host_map,
+        host_before_window)
+    if not labels:
         raise AssertionError("resident path: label streams differ from the "
-                             "host run's: %s vs %s" % (m.rm_labels,
-                                                       host_labels))
-    n = len(host_before_window)
-    worst_t, worst_r = _pose_gates(host_before_window, snap[:n],
-                                   m.camera_poses_gt[:n])
+                             "host run's: %s vs %s" % (
+                                 system.map.rm_labels,
+                                 host_map.rm_labels[:N_RESIDENT - 1]))
+    worst_t, worst_r = _pose_gates(ref, run["snap"],
+                                   system.map.camera_poses_gt[:len(ref)])
     if not (worst_t < 0.01 and worst_r < 0.03):
         raise AssertionError("resident path: camera poses before the window "
                              "part from the host run's by %.4f of the "
                              "motion / %.4f deg" % (worst_t, worst_r))
-    steady = [x for i, x in enumerate(call_ms)
-              if 2 <= i < N_RESIDENT - 1 and i not in (sync_frame,
-                                                       trace_frame)]
-    return dict(rpe=rpe, n_obj=n_obj, launches=launches, peak=peak,
-                call_ms=call_ms, steady_ms=sorted(steady)[len(steady) // 2],
-                loop_s=loop_s, reads=reads, sync_calls=sync_calls,
-                sync_sites=sync_sites, trace=trace, worst_t=worst_t,
-                worst_r=worst_r, ba_runs=tr.ba_runs, n_poses=n)
+    return dict(run, rpe=rpe, n_obj=n_obj, worst_t=worst_t, worst_r=worst_r,
+                ba_runs=system.tracker.ba_runs, n_poses=len(ref))
+
+
+def pipelined_phase(root, loaded, host_map, host_before_window,
+                    host_before_motions):
+    """The pipelined host path on the card: the resident phase's files and
+    settings with ``pipelined_tracking = True`` and the next frames'
+    images as hints (the detectors of frame t+1 run during frame t).
+    Checks one FAST launch a frame, the window BA at frame 19, the label
+    streams of the disk phase's synchronous run, and the camera poses and
+    object motions before the window equal to that run's, bit for bit."""
+    import numpy as np
+
+    from sdpl_slam_torch.models.system import System
+
+    system = System(_loop_settings(root, pipelined_tracking=True),
+                    verbose=False)
+    frames = [loaded.frame(i) for i in range(N_RESIDENT)]
+    run = _loop_run(system, loaded, frames, hints=True)
+    rpe, n_obj, labels, ref = _check_loop(
+        system, run, N_RESIDENT, "pipelined path", host_map,
+        host_before_window)
+    if not labels:
+        raise AssertionError("pipelined path: label streams differ from "
+                             "the synchronous run's")
+    got_m, want_m = run["motions"], host_before_motions[:N_RESIDENT - 2]
+    same = (len(run["snap"]) == len(ref) and len(got_m) == len(want_m)
+            and all(np.array_equal(a, b) for a, b in zip(run["snap"], ref))
+            and all(len(x) == len(y) and all(np.array_equal(a, b)
+                                             for a, b in zip(x, y))
+                    for x, y in zip(got_m, want_m)))
+    if not same:
+        raise AssertionError("pipelined path: camera poses or object motions "
+                             "before the window differ from the synchronous "
+                             "run's")
+    tr = system.tracker
+    return dict(run, rpe=rpe, n_obj=n_obj, n_poses=len(ref),
+                n_motions=sum(len(x) for x in got_m),
+                ba_runs=tr.ba_runs, detect_ms=list(tr.detect_ms),
+                predispatch_ms=list(tr.predispatch_ms),
+                det_wait_ms=list(tr.det_wait_ms))
+
+
+def _abs_pose_worst(ref, got):
+    """tests/test_chained.py's comparison: worst per-frame camera position
+    (m) and rotation (deg, trace formula) difference."""
+    import numpy as np
+
+    dt = dr = 0.0
+    for a, b in zip(ref, got):
+        dt = max(dt, float(np.linalg.norm(a[:3, 3] - b[:3, 3])))
+        dr = max(dr, float(np.degrees(np.arccos(np.clip(
+            (np.trace(a[:3, :3].T @ b[:3, :3]) - 1) / 2, -1, 1)))))
+    return dt, dr
+
+
+# tests/test_chained.py's gates against the host path, by depth
+CHAINED_HOST_GATES = {2: (0.02, 0.2), 3: (0.03, 0.3)}
+N_CHAINED3 = 10   # frames of the depth-3 run
+
+
+def chained_phase(root, loaded, host_map, host_before_window):
+    """The chained loop on the card: the resident phase's files and
+    settings with ``chained_tracking = True`` at depth 2, the next two
+    frames' images as hints, the window BA at frame 19; then frames 0-9 at
+    depth 3.  Checks one FAST launch a frame, the RPE gates, the camera
+    poses before the window within tests/test_chained.py's gates of the
+    disk phase's host run; the sync-debug frame and the profiled frame as
+    in the resident phase; the bytes of the pushed bundle."""
+    from sdpl_slam_torch.models.chained import bundle_size
+    from sdpl_slam_torch.models.system import System
+
+    frames = [loaded.frame(i) for i in range(N_RESIDENT)]
+    out = {}
+    for depth, n in ((2, N_RESIDENT), (3, N_CHAINED3)):
+        system = System(_loop_settings(root, chained_tracking=True,
+                                       chained_depth=depth), verbose=False)
+        tr = system.tracker
+        full = depth == 2
+        run = _loop_run(system, loaded, frames[:n], hints=True,
+                        sync_frame=SYNC_FRAME if full else None,
+                        trace_frame=TRACE_FRAME if full else None,
+                        trace_exclude=("chained_step",))
+        what = "chained path, depth %d" % depth
+        rpe, n_obj, labels, ref = _check_loop(
+            system, run, n, what, host_map, host_before_window, window=full)
+        dt, dr = _abs_pose_worst(ref, run["snap"])
+        gt, gr = CHAINED_HOST_GATES[depth]
+        if not (dt < gt and dr < gr):
+            raise AssertionError("%s: camera poses part from the host run's "
+                                 "by %.4f m / %.4f deg" % (what, dt, dr))
+        caps = dict(NS=tr.NS, NLS=tr.NLS, NO=tr.NO, NLO=tr.NLO)
+        out[depth] = dict(run, rpe=rpe, n_obj=n_obj, labels=labels, dt=dt,
+                          dr=dr, ba_runs=tr.ba_runs,
+                          bundle_bytes=4 * bundle_size(caps, depth))
+    return out
 
 
 def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
@@ -1384,8 +1540,9 @@ def main():
         print("  LM host reads per frame %s; FAST launches %d (1 a frame); "
               "peak device memory %.1f MiB" % (
                   rs["reads"], rs["launches"], rs["peak"] / 2 ** 20))
-        print("  sync debug mode over frame 10: %d synchronising calls, %d "
-              "LM exit reads (%s)" % (rs["sync_calls"], rs["reads"][10],
+        print("  sync debug mode over frame %d: %d synchronising calls, %d "
+              "LM exit reads (%s)" % (SYNC_FRAME, rs["sync_calls"],
+                                      rs["reads"][SYNC_FRAME],
                                       rs["sync_sites"]))
         t = rs["trace"]
         print("  frame 11 under torch.profiler: %d kernel launches (runtime "
@@ -1395,6 +1552,101 @@ def main():
             print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
                   % (r["kind"], r["frame"], r["ms"], r["iterations"],
                      r["cg_iterations"]))
+
+        t0 = time.perf_counter()
+        pp = pipelined_phase(root, loaded, res["system"].map,
+                             res["before_window"], res["before_motions"])
+        print("pipelined phase: the first %d files with pipelined_tracking = "
+              "True and the next frames' images as hints, window BA at frame "
+              "%d (%.1f s); %d object motions" % (
+                  N_RESIDENT, N_RESIDENT - 1, time.perf_counter() - t0,
+                  pp["n_obj"]))
+        for name, (t_err, r_err) in pp["rpe"].items():
+            print("  camera RPE, %s poses: %.6f m / %.5f deg (gates %g m / "
+                  "%g deg)" % (name, t_err, r_err, RPE_T_GATE, RPE_R_GATE))
+        print("  label streams identical to the disk phase's synchronous "
+              "run; camera poses of frames 0-%d and %d object motions before "
+              "the window equal to that run's, bit for bit"
+              % (pp["n_poses"] - 1, pp["n_motions"]))
+        sync_fm = sorted(x for t, x in enumerate(res["frame_ms"][:N_RESIDENT])
+                         if 2 <= t < N_RESIDENT - 1)
+        print("  wall ms per track_rgbd call: median %.2f over frames 2-%d "
+              "(the disk phase's synchronous frames 2-%d: median %.2f); all "
+              "%s; loop %.1f s" % (
+                  pp["steady_ms"], N_RESIDENT - 2, N_RESIDENT - 2,
+                  sync_fm[len(sync_fm) // 2],
+                  [round(x, 2) for x in pp["call_ms"]], pp["loop_s"]))
+        med = lambda v: float(np.median(v)) if len(v) else float("nan")
+        print("  detector ms on the calling thread per frame: synchronous "
+              "(the disk phase, dispatch to results home) median %.2f; "
+              "pipelined: predispatch of the next frame median %.2f + wait "
+              "for this frame's results median %.2f = %.2f (%d "
+              "predispatches, %d waits, %d synchronous runs)" % (
+                  med(res["system"].tracker.detect_ms[1:N_RESIDENT]),
+                  med(pp["predispatch_ms"]), med(pp["det_wait_ms"]),
+                  med(pp["predispatch_ms"]) + med(pp["det_wait_ms"]),
+                  len(pp["predispatch_ms"]), len(pp["det_wait_ms"]),
+                  len(pp["detect_ms"])))
+        print("  LM host reads per frame %s; FAST launches %d (1 a frame); "
+              "peak device memory %.1f MiB" % (
+                  pp["reads"], pp["launches"], pp["peak"] / 2 ** 20))
+        for r in pp["ba_runs"]:
+            print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
+                  % (r["kind"], r["frame"], r["ms"], r["iterations"],
+                     r["cg_iterations"]))
+
+        t0 = time.perf_counter()
+        ch = chained_phase(root, loaded, res["system"].map,
+                           res["before_window"])
+        g0 = loaded.frame(0)
+        dense = sum(np.asarray(a, dt).nbytes for a, dt in (
+            (g0[1], np.float32), (g0[2], np.float32), (g0[3], np.int32)))
+        print("chained phase: the first %d files with chained_tracking = "
+              "True at depth 2, the next two frames' images as hints, window "
+              "BA at frame %d; then frames 0-%d at depth 3 (%.1f s)" % (
+                  N_RESIDENT, N_RESIDENT - 1, N_CHAINED3 - 1,
+                  time.perf_counter() - t0))
+        for depth, c in sorted(ch.items()):
+            gt, gr = CHAINED_HOST_GATES[depth]
+            print("  depth %d: %d object motions; camera RPE %s; camera poses "
+                  "against the disk phase's host run: worst %.5f m / %.5f deg "
+                  "(gates %g m / %g deg); label streams %s the host run's; "
+                  "FAST launches %d (1 a frame)" % (
+                      depth, c["n_obj"], ", ".join(
+                          "%s %.6f m / %.5f deg" % (k, *v)
+                          for k, v in c["rpe"].items()),
+                      c["dt"], c["dr"], gt, gr,
+                      "equal to" if c["labels"] else "differ from",
+                      c["launches"]))
+            print("    wall ms per track_rgbd call: median %.2f over the "
+                  "steady frames; all %s; loop %.1f s; LM reads per frame "
+                  "%s; peak device memory %.1f MiB" % (
+                      c["steady_ms"], [round(x, 2) for x in c["call_ms"]],
+                      c["loop_s"], c["reads"], c["peak"] / 2 ** 20))
+            print("    bytes pushed a frame: the bundle %d B, against the "
+                  "resident mode's dense depth, flow and mask planes %d B "
+                  "(%.2fx); the grey image %d B in both" % (
+                      c["bundle_bytes"], dense, dense / c["bundle_bytes"],
+                      np.asarray(g0[0]).nbytes))
+        c = ch[2]
+        t = c["trace"]
+        print("  depth 2 beside the resident phase of this call: wall a call "
+              "%.2f ms (resident %.2f); frame 11 under torch.profiler %d "
+              "launches, %d device kernels summing %.2f ms (resident %d, %d, "
+              "%.2f ms); sync debug mode over frame 10: %d synchronising "
+              "calls, %d LM exit reads (resident %d, %d; %s); peak %.1f MiB "
+              "(resident %.1f MiB)" % (
+                  c["steady_ms"], rs["steady_ms"], t["launches"],
+                  t["kernels"], t["busy_ms"], rs["trace"]["launches"],
+                  rs["trace"]["kernels"], rs["trace"]["busy_ms"],
+                  c["sync_calls"], c["reads"][SYNC_FRAME],
+                  rs["sync_calls"], rs["reads"][SYNC_FRAME],
+                  c["sync_sites"], c["peak"] / 2 ** 20,
+                  rs["peak"] / 2 ** 20))
+        for r in c["ba_runs"]:
+            print("  depth 2 %s BA at frame %d: %.1f ms, %d LM / %d CG "
+                  "iterations" % (r["kind"], r["frame"], r["ms"],
+                                  r["iterations"], r["cg_iterations"]))
 
         t0 = time.perf_counter()
         kt = kitti_phase(seq, work)

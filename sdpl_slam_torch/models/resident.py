@@ -43,7 +43,7 @@ from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import frame_solvers as fs
 from ..utils import metrics
-from ..utils.device import scatter_add
+from ..utils.device import host_array, scatter_add, to_host_async
 from . import frame as fr
 
 _BIG = torch.iinfo(torch.int32).max
@@ -506,6 +506,12 @@ class DenseFilts:
         _, _, at_e = _trunc_at(uv4[:, 2:], h, w)
         return torch.cat([self.flow[at_s], self.flow[at_e]], 1)
 
+    def flow4_final(self, uv4, carried_f4, valid):
+        """Flow at the merged object-line rows: looked up again at their
+        (zeroed where invalid) positions; the flows carried through the
+        merge are for the sampled filters of the chained mode."""
+        return self.flow4(uv4)
+
 
 def dense_stage_inputs(cfg, state, depth, mask):
     """Inheritance and the line track filter from the full planes."""
@@ -939,8 +945,9 @@ def _renew_core(cfg, K, caps, si, filts, hw, pose, velocity,
     nol_uv, nol_d, nol_sem = _masked(oline_valid, *merged[:3])
     nol_asso, nol_cnd = _masked(oline_valid, *merged[3:5], fill=-1)
     nol_label, = _masked(oline_valid, merged[6], fill=-2)
-    # flows at the merged (zeroed where invalid) positions
-    nol_f = filts.flow4(nol_uv)
+    # flows at the merged rows (the dense filters look them up again at the
+    # zeroed-where-invalid positions; the sampled ones take the carried)
+    nol_f = filts.flow4_final(nol_uv, merged[5], oline_valid)
     nol_c = nol_uv + nol_f
 
     state = ResidentState(
@@ -1312,13 +1319,7 @@ class ResidentDriver:
                 self.state, depth_d, flow_d, mask_d, *cand, gt_prev, gt_cur,
                 u_cam, u_obj)
         tr.lm_host_syncs += syncs
-        if out.is_cuda:
-            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-            host.copy_(out, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
-        else:
-            host, ready = out, None
+        host, ready = to_host_async(out)
         timing[1] = (time.perf_counter() - t0) * 1e3
         self.pending.append(dict(
             f_id=f_id, host=host, ready=ready, pose_gt=pose_gt,
@@ -1333,13 +1334,20 @@ class ResidentDriver:
             self.drain_all()
             if self._lba_trigger(f_id):
                 self._run_partial_ba(f_id)
-            run_global = (cfg.run_global_ba if cfg.run_global_ba is not None
-                          else cfg.choose_data == 2)
-            if f_id == stop_frame and run_global:
-                self.exit()
-                tr._batch_ba("global", ba_builder.full_batch_optimization,
-                             frame=f_id)
+            self._finish_run(f_id, stop_frame)
         return np.asarray(self._last_pose)
+
+    def _finish_run(self, f_id, stop_frame):
+        """At the stop frame with the global BA on (``run_global_ba``, or
+        KITTI data when it is None), write the state back and run it on the
+        host map, as the host path does at that frame."""
+        cfg = self.tr.cfg
+        run_global = (cfg.run_global_ba if cfg.run_global_ba is not None
+                      else cfg.choose_data == 2)
+        if f_id == stop_frame and run_global:
+            self.exit()
+            self.tr._batch_ba("global", ba_builder.full_batch_optimization,
+                              frame=f_id)
 
     # -- draining and BA -------------------------------------------------
     def drain_all(self):
@@ -1366,10 +1374,8 @@ class ResidentDriver:
 
     def _drain_one(self):
         p = self.pending.popleft()
-        if p["ready"] is not None:
-            p["ready"].synchronize()
         # a writable copy: the BA write-back mutates map rows in place
-        o = unpack_out(np.array(p["host"].numpy()), self.caps)
+        o = unpack_out(np.array(host_array(p["host"], p["ready"])), self.caps)
         self._apply_out(p, o)
         return p, o
 

@@ -1,7 +1,7 @@
 """Tracking: the per-frame dynamic-SLAM pipeline (host tracking path).
 
-Counterpart of ``sdpl_slam_tpu.models.tracking`` for the synchronous host
-path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
+Counterpart of ``sdpl_slam_tpu.models.tracking`` (the reference
+``Tracking``, Tracking.cc):
 
   GrabImageRGBD (Tracking.cc:179)  ->  Tracking.grab_rgbd
     FAST pyramid on the device        ops.fast.detect_keypoints
@@ -9,11 +9,11 @@ path with the joint optimiser (the reference ``Tracking``, Tracking.cc):
     depth preprocess (:195-219)       _np_preprocess_depth (host)
     UpdateMask (:4730)                _update_mask (host)
     selections, inheritance           frame_host (host numpy)
-  Track (:1028)                       _track
+  Track (:1028)                       _track_dispatch, _track_finish
     camera init (:2738) + joint flow+pose LM (Optimizer.cc:6409),
     scene flow (:1989), DynObjTracking (:2077), per-object init + joint
     flow+motion LMs (Optimizer.cc:7603) batched over objects: _solve_frame
-    on the device, one host copy of its outputs per frame; with
+    on the device, one copy of its outputs home per frame; with
     ``use_joint_optimization = False`` the camera takes the pose-only LM
     on fixed structure instead (Optimizer.cc:5900): _solve_frame_nonjoint
     RenewFrameInfo (:3959), map appends (:1605-1786) on the host
@@ -26,26 +26,29 @@ as in the JAX package.  Fixed capacities come from the reference's caps
 (1200 static points, 400 static lines, 800 points and 100 lines per
 object).
 
-Both detectors run synchronously at the start of their frame and come
-home in one host copy; the JAX package's jit memo, packed buffer and
-dispatch one frame ahead hide a transport this package does not have.
+With ``pipelined_tracking`` (the default, as in the JAX package) a frame
+runs in two halves: :meth:`Tracking._track_dispatch` (inherit, grouping,
+the solves, the start of the results' copy home, the selections) in its
+own call, :meth:`Tracking._track_finish` (commit, renewal, map push, BA
+triggers) at the start of the next call or at a flush; the last frame
+finishes in its own call.  The detectors run on a side CUDA stream, and
+with the next frame's image given they run for that frame during this
+one.  Without pipelining both halves run in one call.
 
 With ``resident_tracking`` every frame after the first runs through
 :class:`.resident.ResidentDriver`: the whole frame on the device against
-device state, the map rows two frames behind.  Where the driver is not
+device state, the map rows two frames behind; with ``chained_tracking``
+through :class:`.chained.ChainedDriver`, the same device core fed by
+samples the host takes from its planes.  Where the drivers are not
 eligible (no joint optimiser, or lens distortion) the frames take the host
-path, as in the JAX package.
-
-Not in this package yet, and refused by :func:`check_supported` rather
-than run differently: the chained / pipelined modes of the JAX package.
-The host path runs each frame synchronously; the JAX package's own tests
-show its pipelining changes no result.  The batch BAs take the dense-Schur
-step or the CG step by the JAX package's rule (``ba_builder``), and
-``ba_runs`` records which.
+path, as in the JAX package.  The batch BAs take the dense-Schur step or
+the CG step by the JAX package's rule (``ba_builder``), and ``ba_runs``
+records which.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import time
 from typing import List, Optional
@@ -63,9 +66,10 @@ from ..solvers import batch_ba as bb
 from ..solvers import frame_solvers as fs
 from ..solvers import schur_ba
 from ..utils.config import KITTI, OMD, Settings
-from ..utils.device import checked_device
+from ..utils.device import checked_device, host_array, to_host_async
 from . import frame as fr
 from . import frame_host as fh
+from .chained import ChainedDriver
 from .map_state import MapState
 from .resident import ResidentDriver, init_model, n_hypotheses
 from .resident import scene_flow_static_frac
@@ -80,18 +84,40 @@ def _global_ba_on(cfg: Settings) -> bool:
 
 
 def check_supported(cfg: Settings) -> None:
-    """Raise ``NotImplementedError`` (naming the ROADMAP item) for settings
-    this package cannot run yet; it never runs them differently."""
-    refused = [
-        (cfg.chained_tracking, "chained_tracking (ROADMAP A14)"),
-        (cfg.pipelined_tracking,
-         "pipelined_tracking (ROADMAP A5: the port runs synchronously; "
-         "set pipelined_tracking=False)"),
-    ]
-    for bad, what in refused:
-        if bad:
-            raise NotImplementedError("sdpl_slam_torch does not support "
-                                      + what + " yet")
+    """The settings this package cannot run yet: none.  Every setting of the
+    JAX package's ``Settings`` runs (the chained and pipelined modes were
+    the last refused, until ROADMAP A14 and A5); ``System`` still calls
+    this first, the one place a refusal would go."""
+
+
+@functools.lru_cache(maxsize=None)
+def _det_stream(device: torch.device):
+    """The side CUDA stream the detectors of ``device`` run on (one a
+    card, so trackers and their copies share it)."""
+    return torch.cuda.Stream(device)
+
+
+def _pack(outs: dict):
+    """Device outputs -> one float32 buffer on the device and its spec
+    (name, shape, dtype); bools and counts are exact in float32."""
+    spec = [(k, tuple(v.shape), v.dtype) for k, v in outs.items()]
+    return torch.cat([v.reshape(-1).to(torch.float32)
+                      for v in outs.values()]), spec
+
+
+def _unpack(flat: np.ndarray, spec) -> dict:
+    """The inverse of :func:`_pack` on the host copy of its buffer."""
+    out, o = {}, 0
+    for name, shape, dtype in spec:
+        n = int(np.prod(shape, dtype=np.int64))
+        a = flat[o:o + n].reshape(shape)
+        o += n
+        if dtype == torch.bool:
+            a = a > 0.5
+        elif not dtype.is_floating_point:
+            a = a.astype(np.int32)
+        out[name] = np.array(a)
+    return out
 
 
 def _np_backproject(K: Intrinsics, uv: np.ndarray, z: np.ndarray):
@@ -222,6 +248,7 @@ class Tracking:
         self.map = MapState()
         self.mask_np: Optional[np.ndarray] = None        # current (possibly
         #                                                  recovered) mask
+        self.depth_np: Optional[np.ndarray] = None       # preprocessed depth
         self.last_mask_np: Optional[np.ndarray] = None   # mSegMapLast
         self.last_flow_np: Optional[np.ndarray] = None   # mFlowMapLast
         self._oline_label = np.full(self.NLO, -2, np.int32)
@@ -233,14 +260,31 @@ class Tracking:
         # one dict per batch BA run: kind ("local" / "global"), frame, wall
         # ms, LM and CG iterations, host reads (batch_ba.run_ba's counters)
         self.ba_runs: List[dict] = []
-        self._res: Optional[ResidentDriver] = None       # resident mode
+        self._res: Optional[ResidentDriver] = None       # device loops
+        # the pipelined host path: the frame in flight, its deferred map
+        # push, and the next frame's predispatched detectors
+        self._inflight: Optional[dict] = None
+        self._deferred_push: Optional[tuple] = None
+        self._pending_det: Optional[tuple] = None
+        self._next_gray: Optional[np.ndarray] = None
+        # host ms of the detectors on the calling thread: each run brought
+        # home at once (dispatch to results), each predispatch of the next
+        # frame's, and each wait for a predispatched frame's results
+        self.detect_ms: List[float] = []
+        self.predispatch_ms: List[float] = []
+        self.det_wait_ms: List[float] = []
 
     def flush(self) -> None:
-        """Drain the resident mode's map stream, so the map holds every
-        tracked frame.  Idempotent; ``System`` calls it before any reader
-        of the map."""
+        """Finish the frame in flight (pipelined: pull, renewal, map push,
+        BA triggers) and drain the device loops' map stream, so the map
+        holds every tracked frame.  Idempotent; ``System`` calls it before
+        any reader of the map."""
         if self._res is not None:
             self._res.drain_all()
+        self._run_deferred_push()     # always older than the frame in flight
+        if self._inflight is not None:
+            fl, self._inflight = self._inflight, None
+            self._track_finish(fl)
 
     def sync_host_state(self) -> None:
         """Write the device-resident state back to the host ``last`` dict
@@ -313,13 +357,19 @@ class Tracking:
         n_images: int,
         line_detections: Optional[np.ndarray] = None,
         point_detections: Optional[np.ndarray] = None,
+        next_gray: Optional[np.ndarray] = None,
+        next_gray2: Optional[np.ndarray] = None,
     ) -> np.ndarray:
-        """Process one frame; returns the estimated camera pose T_cw.
+        """Process one frame; returns the estimated camera pose T_cw (with
+        ``pipelined_tracking``, the previous frame's until the last frame).
 
         ``line_detections``: optional (L, 4) segments replacing the line
         detector; ``point_detections``: optional (P, 2) corners replacing
         the FAST pyramid.  With neither, both detectors run on ``gray`` on
-        the tracker's device.
+        the tracker's device.  ``next_gray`` / ``next_gray2``: the grey
+        images of frames t+1 and t+2, if the caller has them: with
+        ``pipelined_tracking`` frame t+1's detectors are dispatched during
+        this frame, and the chained driver takes both.
         """
         cfg = self.cfg
         h, w = gray.shape
@@ -340,38 +390,59 @@ class Tracking:
                 @ self.origin_inv
             ).astype(np.float32)
 
-        # --- the device-resident loop (models/resident.py): from the second
-        # frame on, the whole frame runs on the device against device state
-        # and the map rows stream back LAG frames behind ---
-        if (cfg.resident_tracking and ResidentDriver.eligible(cfg)
-                and self.f_id > 0
+        # --- the device loops (models/resident.py, models/chained.py): from
+        # the second frame on, the whole frame runs on the device against
+        # device state and the map rows stream back behind it ---
+        driver_cls = ChainedDriver if cfg.chained_tracking else ResidentDriver
+        if ((cfg.resident_tracking or cfg.chained_tracking)
+                and driver_cls.eligible(cfg) and self.f_id > 0
                 and (self._res is not None or self.last is not None)):
             if self._res is None:
-                self._res = ResidentDriver(self)
+                self.flush()
+                self._res = driver_cls(self)
                 self._res.enter()
+            kw = {}
+            if cfg.chained_tracking:
+                kw = dict(next_gray=next_gray, next_gray2=next_gray2)
             pose = self._res.track(
                 gray, depth_raw, flow, mask, pose_gt,
                 [np.asarray(r, np.float32) for r in obj_poses_gt],
                 timing, self.f_id, n_images, stop_frame,
                 line_detections=line_detections,
-                point_detections=point_detections)
+                point_detections=point_detections, **kw)
             if self._res.state is None:    # left at the global BA
                 self._res = None
             self.f_id += 1
             return pose
         self.sync_host_state()
 
+        # --- this frame's detectors: taken from the previous call's
+        # dispatch where it ran them with the same needs, else run now ---
         t0 = time.perf_counter()
         need_fast = cfg.use_sample_fea == 0 and point_detections is None
         need_lines = line_detections is None and cfg.use_lines
-        det, detected_lines = self._detect(gray, need_fast, need_lines)
+        pend, self._pending_det = self._pending_det, None
+        if (pend is not None and pend[0] == self.f_id
+                and pend[1] == (need_fast, need_lines)):
+            det, detected_lines = self._take_detections(pend[2])
+            self.det_wait_ms.append((time.perf_counter() - t0) * 1e3)
+        else:
+            det, detected_lines = self._detect(gray, need_fast, need_lines)
         if need_lines:
             line_detections = detected_lines
+        self._next_gray = next_gray if cfg.pipelined_tracking else None
         depth_now = _np_preprocess_depth(
             np.asarray(depth_raw, np.float32), cfg.choose_data,
             cfg.depth_map_factor, cfg.bf,
         )
         flow_np = np.ascontiguousarray(flow, dtype=np.float32)
+
+        # --- finish the previous frame in flight (pipelined): before this
+        # frame's images replace self.mask_np / depth_np.  Its map push
+        # waits until this frame is dispatched, unless a BA fires ---
+        if self._inflight is not None:
+            fl, self._inflight = self._inflight, None
+            self._track_finish(fl, defer_push=True)
 
         # --- mask recovery (UpdateMask, Tracking.cc:4730-4810) ---
         self.mask_np = np.asarray(mask, np.int32).copy()
@@ -387,6 +458,7 @@ class Tracking:
 
         gt_objs = [np.asarray(r, np.float32) for r in obj_poses_gt]
         if self.f_id == 0 or self.last is None:
+            self._predispatch_next_detectors(need_fast, need_lines)
             stat_tmp, line_tmp, oline_tmp = self._finish_selection(
                 det, point_detections, line_detections, flow_np, h, w,
             )
@@ -394,43 +466,79 @@ class Tracking:
                              oline_tmp, pose_gt, gt_objs)
             pose = np.asarray(self.last["pose"])
         else:
-            pose = self._track(
+            fl = self._track_dispatch(
                 flow_np, obj_tmp, pose_gt, gt_objs, timing, stop_frame,
-                det, point_detections, line_detections,
+                det, point_detections, line_detections, need_fast,
+                need_lines,
             )
+            # the previous frame's map push after this frame's dispatch
+            self._run_deferred_push()
+            last_frame = self.f_id >= stop_frame or self.f_id >= n_images - 1
+            if (cfg.pipelined_tracking and fl["legacy"] is None
+                    and not last_frame):
+                # one frame behind: this frame's pose lands in the map when
+                # the next call (or a flush) finishes it
+                self._inflight = fl
+                pose = np.asarray(self.last["pose"])
+            else:
+                pose = self._track_finish(fl)
         self.last_mask_np = self.mask_np.copy()
         self.last_flow_np = np.asarray(flow, np.float32)
         self.f_id += 1
         return pose
 
     # ------------------------------------------------------------------
-    def _detect(self, gray: np.ndarray, need_fast: bool, need_lines: bool):
-        """The detectors this frame needs, on the tracker's device, and one
-        host copy of their packed results -> ((uv, valid) or None,
-        (L, 4) valid segments or None).  The line detector is timed on its
-        own between two synchronisations (``line_detect_ms``)."""
+    def _dispatch_detectors(self, gray: np.ndarray, need_fast: bool,
+                            need_lines: bool, timed: bool = False):
+        """Run the detectors this frame needs on the tracker's device and
+        start the copy of their packed results home; on the card on a side
+        stream, without waiting for it.  -> a handle for
+        :meth:`_take_detections`, or None.  ``timed``: the line detector
+        is timed on its own between two synchronisations of that stream
+        (``line_detect_ms``)."""
         if not (need_fast or need_lines):
-            return None, None
-        img = torch.from_numpy(np.ascontiguousarray(gray)).to(self.device)
+            return None
         cuda = self.device.type == "cuda"
-        parts = []
-        if need_fast:
-            uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
-            parts.append(torch.cat([uv, valid[:, None].to(uv.dtype)], 1))
-        if need_lines:
-            if cuda:
-                torch.cuda.synchronize(self.device)
-            t0 = time.perf_counter()
-            seg = line_ops.detect_lines(img, self._line_cfg())
-            if cuda:
-                torch.cuda.synchronize(self.device)
-            self.line_detect_ms.append((time.perf_counter() - t0) * 1e3)
-            parts.append(torch.cat(
-                [seg.uv4, seg.valid[:, None].to(seg.uv4.dtype)], 1))
-        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        stream = _det_stream(self.device) if cuda else None
+        if cuda:
+            # the detectors read the default stream's earlier work (their
+            # cached constants may have been made there)
+            stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
+            src = torch.from_numpy(np.ascontiguousarray(gray))
+            img = (src.pin_memory().to(self.device, non_blocking=True)
+                   if cuda else src)
+            parts = []
+            if need_fast:
+                uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
+                parts.append(torch.cat([uv, valid[:, None].to(uv.dtype)], 1))
+            if need_lines:
+                if timed and cuda:
+                    stream.synchronize()
+                t0 = time.perf_counter()
+                seg = line_ops.detect_lines(img, self._line_cfg())
+                if timed:
+                    if cuda:
+                        stream.synchronize()
+                    self.line_detect_ms.append(
+                        (time.perf_counter() - t0) * 1e3)
+                parts.append(torch.cat(
+                    [seg.uv4, seg.valid[:, None].to(seg.uv4.dtype)], 1))
+            host, ready = to_host_async(
+                torch.cat([p.reshape(-1) for p in parts]))
+        n_fast = parts[0].shape[0] if need_fast else 0
+        return need_fast, need_lines, n_fast, host, ready
+
+    @staticmethod
+    def _take_detections(handle):
+        """Wait for a :meth:`_dispatch_detectors` handle -> ((uv, valid) or
+        None, (L, 4) valid segments or None)."""
+        if handle is None:
+            return None, None
+        need_fast, need_lines, n, host, ready = handle
+        flat = host_array(host, ready)
         det = lines = None
         if need_fast:
-            n = parts[0].shape[0]
             fast = flat[:3 * n].reshape(n, 3)
             det = (fast[:, :2], fast[:, 2] > 0.5)
             flat = flat[3 * n:]
@@ -440,6 +548,33 @@ class Tracking:
             # the host only compacts the valid rows
             lines = packed[packed[:, 4] > 0.5, :4]
         return det, lines
+
+    def _detect(self, gray: np.ndarray, need_fast: bool, need_lines: bool):
+        """The detectors this frame needs, run and brought home now."""
+        t0 = time.perf_counter()
+        out = self._take_detections(
+            self._dispatch_detectors(gray, need_fast, need_lines, timed=True))
+        if need_fast or need_lines:
+            self.detect_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def _predispatch_next_detectors(self, need_fast: bool, need_lines: bool):
+        """With ``pipelined_tracking`` and the next frame's image given,
+        dispatch that frame's detectors now: their device work overlaps the
+        rest of this frame, and the next call takes them where its needs
+        match.  ``predispatch_ms`` logs the host ms of the dispatch."""
+        g, self._next_gray = self._next_gray, None
+        cfg = self.cfg
+        if ((cfg.resident_tracking or cfg.chained_tracking)
+                and ResidentDriver.eligible(cfg)):
+            return            # the next frame runs in a device loop
+        if g is None or not (need_fast or need_lines):
+            return
+        t0 = time.perf_counter()
+        self._pending_det = (self.f_id + 1, (need_fast, need_lines),
+                             self._dispatch_detectors(g, need_fast,
+                                                      need_lines))
+        self.predispatch_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _finish_selection(self, det, point_detections,
                           line_detections, flow_np, h, w):
@@ -508,11 +643,17 @@ class Tracking:
         return stat_tmp, line_tmp, oline_tmp
 
     # ------------------------------------------------------------------
-    def _track(self, flow_np, obj_tmp, pose_gt, gt_objs, timing, stop_frame,
-               det, point_detections, line_detections):
-        """One tracked frame: inherit, group objects, solve camera and
-        objects on the device, commit labels, renew features, append to
-        the map."""
+    def _track_dispatch(self, flow_np, obj_tmp, pose_gt, gt_objs, timing,
+                        stop_frame, det, point_detections, line_detections,
+                        need_fast, need_lines):
+        """The first half of a tracked frame: inherit, group objects,
+        solve camera and objects on the device and start the copy of the
+        results home, run this frame's selections and dispatch the next
+        frame's detectors.  Returns the in-flight frame dict that
+        :meth:`_track_finish` consumes: every input of the finish is in
+        it, since with ``pipelined_tracking`` the finish runs at the start
+        of the next call, after ``self.depth_np`` / ``mask_np`` hold the
+        next frame's images."""
         cfg = self.cfg
         last = self.last
         h, w = self.mask_np.shape
@@ -545,15 +686,55 @@ class Tracking:
         buckets = self._build_buckets(groups, o_uv, o_d, ol_uv, sf_valid)
         timing[2] = (time.perf_counter() - t0) * 1e3
 
-        # ---- camera + objects on the device, one host copy back ----
+        # ---- camera + objects on the device; the results come home in
+        # one copy that the finish waits for ----
         t0 = time.perf_counter()
+        pulled = legacy = None
         if cfg.use_joint_optimization:
-            out = self._solve_frame(velocity_np, last, s_uv, s_d,
-                                    last_s_valid, l_use, buckets)
+            pulled = self._solve_frame(velocity_np, last, s_uv, s_d,
+                                       last_s_valid, l_use, buckets)
         else:
-            out = self._solve_frame_nonjoint(velocity_np, last, s_uv, s_d,
-                                             last_s_valid, l_uv, l_use,
-                                             buckets)
+            legacy = self._solve_frame_nonjoint(velocity_np, last, s_uv, s_d,
+                                                last_s_valid, l_uv, l_use,
+                                                buckets)
+        t_solve = time.perf_counter() - t0
+
+        # ---- selections from this frame's detections ----
+        t0 = time.perf_counter()
+        stat_tmp, line_tmp, oline_tmp = self._finish_selection(
+            det, point_detections, line_detections, flow_np, h, w,
+        )
+        timing[0] += (time.perf_counter() - t0) * 1e3
+        self._predispatch_next_detectors(need_fast, need_lines)
+        return dict(
+            pulled=pulled, legacy=legacy, t_solve=t_solve,
+            buckets=buckets, groups=groups, last=last,
+            s_uv=s_uv, s_d=s_d, l_uv=l_uv, l_d=l_d,
+            o_uv=o_uv, o_d=o_d, o_sem=o_sem,
+            ol_uv=ol_uv, ol_d=ol_d, ol_sem=ol_sem, ol_v=ol_v,
+            stat_tmp=stat_tmp, line_tmp=line_tmp, oline_tmp=oline_tmp,
+            flow_np=flow_np, obj_tmp=obj_tmp, pose_gt=pose_gt,
+            gt_objs=gt_objs, timing=timing, stop_frame=stop_frame,
+            f_id=self.f_id, depth_np=self.depth_np, mask_np=self.mask_np,
+        )
+
+    def _track_finish(self, fin, defer_push=False):
+        """The second half of a tracked frame, from the in-flight dict
+        ``fin``: take the solve's results, commit labels, renew features,
+        push the map and fire the BA triggers.  ``defer_push``: leave the
+        map push for :meth:`_run_deferred_push` when no BA fires (the
+        pipelined path runs it after the next frame's dispatch).  Returns
+        the frame's pose (refined, when its window BA ran)."""
+        cfg = self.cfg
+        last, buckets, groups = fin["last"], fin["buckets"], fin["groups"]
+        s_uv, l_uv = fin["s_uv"], fin["l_uv"]
+        timing, f_id = fin["timing"], fin["f_id"]
+
+        t0 = time.perf_counter()
+        out = fin["legacy"]
+        if out is None:
+            host, ready, spec = fin["pulled"]
+            out = _unpack(host_array(host, ready), spec)
         pose_np = out["pose"]
         stat_track_ok, line_track_ok = out["point_inlier"], out["line_inlier"]
         if cfg.use_joint_optimization:
@@ -569,31 +750,23 @@ class Tracking:
             obj_pulled = tuple(out[k][:n_obj] for k in (
                 "o_pose", "o_flow", "o_line_flow", "o_point_inlier",
                 "o_line_inlier", "o_init_n", "o_static_frac"))
-        timing[1] = (time.perf_counter() - t0) * 1e3
-
-        # ---- selections from this frame's detections ----
-        t0 = time.perf_counter()
-        stat_tmp, line_tmp, oline_tmp = self._finish_selection(
-            det, point_detections, line_detections, flow_np, h, w,
-        )
-        timing[0] += (time.perf_counter() - t0) * 1e3
+        timing[1] = (fin["t_solve"] + time.perf_counter() - t0) * 1e3
 
         # velocity (Tracking.cc:1177-1183)
         self.velocity = (pose_np @ np.linalg.inv(last["pose"])).astype(
-            np.float32
-        )
+            np.float32)
 
         # ---- commit object labels + per-object meta (the pose-dependent
         # tail of DynObjTracking + Tracking.cc:1277-1528) ----
         t0 = time.perf_counter()
         obj_label, oline_label, obj_meta = self._commit_objects(
-            groups, obj_pulled, pose_np, pose_gt, gt_objs, last
-        )
+            groups, obj_pulled, pose_np, fin["pose_gt"], fin["gt_objs"],
+            last)
         self._oline_label = oline_label
         obj_track_ok = np.zeros(self.NO, bool)
         oline_track_ok = np.zeros(self.NLO, bool)
-        o_uv_np = np.array(o_uv)
-        ol_uv_np = np.array(ol_uv)
+        o_uv_np = np.array(fin["o_uv"])
+        ol_uv_np = np.array(fin["ol_uv"])
         for om in obj_meta:
             if not om["stat"]:
                 continue
@@ -613,19 +786,21 @@ class Tracking:
         # ================= RENEW =================
         t0 = time.perf_counter()
         new_state = self._renew_frame_info(
-            self.depth_np, self.mask_np,
-            pose_np, flow_np, stat_tmp, line_tmp, obj_tmp, oline_tmp,
-            s_uv, s_d, stat_track_ok,
-            l_uv, l_d, line_track_ok,
-            o_uv_np, o_d, o_sem, obj_label, obj_track_ok,
-            ol_uv_np, ol_d, ol_sem, ol_v, oline_track_ok,
-            pose_gt, gt_objs,
+            fin["depth_np"], fin["mask_np"],
+            pose_np, fin["flow_np"], fin["stat_tmp"], fin["line_tmp"],
+            fin["obj_tmp"], fin["oline_tmp"],
+            s_uv, fin["s_d"], stat_track_ok,
+            l_uv, fin["l_d"], line_track_ok,
+            o_uv_np, fin["o_d"], fin["o_sem"], obj_label, obj_track_ok,
+            ol_uv_np, fin["ol_d"], fin["ol_sem"], fin["ol_v"],
+            oline_track_ok, fin["pose_gt"], fin["gt_objs"],
         )
         timing[4] = (time.perf_counter() - t0) * 1e3
 
         # ================= MAP =================
-        prev_pose_gt = last["pose_gt"]
         self.last = new_state
+        # the next frame's grouping reads the meta: set here, not in the
+        # deferrable push
         self.last_meta = {
             "sem_position": [om["sem"] for om in obj_meta],
             "mod_label": [om["label"] for om in obj_meta],
@@ -634,25 +809,36 @@ class Tracking:
                 om["label"]: om["H"] for om in obj_meta if om["stat"]
             },
         }
-        self._push_map(new_state, pose_np, pose_gt, prev_pose_gt,
-                       self.velocity, obj_meta, timing)
-
         # ===== batch optimisation triggers (Tracking.cc:1793-1884) =====
-        f_id = self.f_id
-        if (cfg.run_local_ba
-                and (f_id - cfg.overlap_size + 1)
-                % max(cfg.window_size - cfg.overlap_size, 1) == 0
-                and f_id >= cfg.window_size - 1):
+        lba_fires = (cfg.run_local_ba
+                     and (f_id - cfg.overlap_size + 1)
+                     % max(cfg.window_size - cfg.overlap_size, 1) == 0
+                     and f_id >= cfg.window_size - 1)
+        global_fires = _global_ba_on(cfg) and f_id == fin["stop_frame"]
+        push = (new_state, pose_np, fin["pose_gt"], last["pose_gt"],
+                self.velocity, obj_meta, timing)
+        if defer_push and not (lba_fires or global_fires):
+            self._deferred_push = push
+            return pose_np
+        self._push_map(*push)
+        if lba_fires:
             self.map.lba_times.append(self._batch_ba(
                 "local", ba_builder.partial_batch_optimization,
-                cfg.window_size))
+                cfg.window_size, frame=f_id))
             # the next frame starts from the refined pose
             pose_np = np.linalg.inv(self.map.camera_poses[-1]).astype(
                 np.float32)
             self.last["pose"] = pose_np
-        if _global_ba_on(cfg) and f_id == stop_frame:
-            self._batch_ba("global", ba_builder.full_batch_optimization)
+        if global_fires:
+            self._batch_ba("global", ba_builder.full_batch_optimization,
+                           frame=f_id)
         return pose_np
+
+    def _run_deferred_push(self) -> None:
+        """The map push a pipelined finish left for later, if any."""
+        if self._deferred_push is not None:
+            push, self._deferred_push = self._deferred_push, None
+            self._push_map(*push)
 
     def _batch_ba(self, kind: str, entry, *args, frame=None) -> float:
         """Run one batch BA entry point on the map; log it in ``ba_runs``
@@ -735,7 +921,8 @@ class Tracking:
                      l_use, buckets):
         """Camera init -> joint camera solve -> scene-flow static test ->
         object inits -> joint object solves on ``self.device``; returns
-        the outputs as host numpy arrays."""
+        the started copy of their packed outputs home (host buffer, event,
+        spec) for :func:`_unpack`."""
         cfg, K, t = self.cfg, self.K, self._tensor
         T_lw, s_obs, s_depth, T_init, subset = self._camera_init(
             velocity_np, last, s_uv, s_d, last_s_valid)
@@ -763,7 +950,8 @@ class Tracking:
                 b["pt_cur_uv"], b["pt_cur_d"], b["pt_sfvalid"])
             outs.update(self._solve_objects(
                 pose, T_lw, T_wl, b, buckets["any_lines"], self.f_id))
-        return {k: v.cpu().numpy() for k, v in outs.items()}
+        flat, spec = _pack(outs)
+        return to_host_async(flat) + (spec,)
 
     def _solve_frame_nonjoint(self, velocity_np, last, s_uv, s_d,
                               last_s_valid, l_uv, l_use, buckets):

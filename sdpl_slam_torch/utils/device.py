@@ -1,9 +1,11 @@
 """The one rule for devices in this package: the card unless the caller
-asks for the CPU, and no silent fallback from the card to the CPU; and the
-scatter-add that sums in one order on either."""
+asks for the CPU, and no silent fallback from the card to the CPU; the
+scatter-add that sums in one order on either; and the copy home that does
+not wait for the card."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -34,3 +36,23 @@ def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None
         dst.index_add_(0, idx, src)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+def to_host_async(t: torch.Tensor):
+    """Start ``t``'s copy home: on the card a non-blocking copy into pinned
+    memory and a CUDA event recorded after it on the current stream; on
+    the CPU ``t`` itself and no event.  :func:`host_array` waits for it."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record()
+    return host, ready
+
+
+def host_array(host: torch.Tensor, ready) -> np.ndarray:
+    """The numpy view of a :func:`to_host_async` copy, once it has landed."""
+    if ready is not None:
+        ready.synchronize()
+    return host.numpy()

@@ -225,18 +225,61 @@ def test_full_ba_float64_escape_hatch(tracked, f32_run):
     assert m64.camera_poses_rf[0].dtype == np.float32
 
 
+def _refined(m):
+    """Refined motions, and the valid rows of the static and dynamic points
+    and of the (normalised) static Pluecker lines of a map, one array each.
+    The dynamic lines are left out: 20 LM steps do not determine them (on
+    the tracked map JAX's own f32 and mixed runs part by 1.66 in their
+    normalised coordinates)."""
+    def rows(values, valid, norm=False):
+        out = np.concatenate([np.asarray(v)[np.asarray(ok, bool)]
+                              for v, ok in zip(values, valid)])
+        if not norm:
+            return out
+        return np.stack([golden_fixture._plucker_normed(r) for r in out])
+
+    return dict(
+        motions=np.stack([x for row in m.rigid_motions_rf for x in row]),
+        stat_3d=rows(m.stat_3d, m.stat_valid),
+        dyn_3d=rows(m.dyn_3d, m.dyn_valid),
+        line_plucker=rows(m.line_plucker, m.line_valid, True))
+
+
 def test_full_ba_mixed_precision(tracked, f32_run):
-    """ba_dtype "mixed": f32 storage and HVP, f64 CG recurrences and dots;
-    the f32 run's cost basin and the GT bound of tests/test_batch_ba.py."""
+    """ba_dtype "mixed": f32 storage and HVP, f64 CG recurrences and dots.
+    The port's mixed run against the JAX package's runs on the same map:
+    its cost within 1.02x of JAX's mixed run's, its motions, points and
+    static lines within the f32 parity tolerance (0.05) of JAX's float64 run,
+    the solution both mixed runs approximate.  (Under this suite's XLA
+    flags JAX's own f32 and mixed runs part from its float64 run from the
+    first LM step on, by 0.0394 in a weakly determined object motion after
+    20 steps; the port's mixed run stays 0.0207 from it.)  The GT bound of
+    tests/test_batch_ba.py against the port's f32 run, and the f32
+    write-back."""
+    from sdpl_slam_tpu.utils.config import Settings as JaxSettings
+
     sys, _, K = tracked
-    m32, c32 = f32_run
+    m32, _ = f32_run
+    ref = {}
+    for dtype in ("mixed", "float64"):
+        jcfg = JaxSettings(width=320, height=96)
+        jcfg.ba_global_iterations = 20
+        jcfg.ba_dtype = dtype
+        m = copy.deepcopy(sys.map)
+        ref[dtype] = (m, float(jbb.full_batch_optimization(
+            m, sys.tracker.K, jcfg)))
     mmx = copy.deepcopy(sys.map)
     cmx = tbb.full_batch_optimization(mmx, K, _short_cfg("mixed"),
                                       device="cpu")
     t32, _ = metrics.camera_rpe(m32.camera_poses_rf, m32.camera_poses_gt)
     tmx, _ = metrics.camera_rpe(mmx.camera_poses_rf, mmx.camera_poses_gt)
     assert np.isfinite(tmx)
-    assert cmx <= c32 * 1.02 + 1e-9, (c32, cmx)
+    cjx = ref["mixed"][1]
+    assert cmx <= cjx * 1.02 + 1e-9, (cjx, cmx)
+    want, got = _refined(ref["float64"][0]), _refined(mmx)
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=0.05,
+                                   err_msg=k)
     assert tmx <= max(3.0 * t32, 2e-3), (t32, tmx)
     assert mmx.camera_poses_rf[0].dtype == np.float32
 

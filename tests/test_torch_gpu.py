@@ -2,7 +2,8 @@
 version, the tracking slice on the card against the same slice on the
 CPU, the window BA on the card run twice, the line detector on the card
 against the CPU, frames from disk with nothing injected, the resident loop
-against the host path, and the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
+against the host path, the pipelined and chained paths on the card, and
+the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -141,6 +142,36 @@ def test_resident_on_card_matches_host(cuda, seq):
     for a, b in zip(maps[True].camera_poses, maps[False].camera_poses):
         np.testing.assert_allclose(a, b, atol=1e-4)
     assert maps[True].rm_labels == maps[False].rm_labels
+
+
+@pytest.mark.gpu
+def test_pipelined_and_chained_on_card(cuda, seq):
+    """The fixture's KITTI-scale frames on the card: the pipelined host path
+    with the next frames' images as hints gives the synchronous map bit for
+    bit, and the chained loop (depth 2) the same label streams and poses
+    within tests/test_chained.py's gates; one FAST launch a frame on each."""
+    maps, n = {}, seq.n_frames
+    for mode in ("sync", "pipelined", "chained"):
+        settings = slice_settings(seq.cfg)
+        settings.pipelined_tracking = mode == "pipelined"
+        settings.chained_tracking = mode == "chained"
+        s = System(settings, verbose=False)
+        before = tf.fast_score_pyramid.launches
+        for t in range(n):
+            f = seq.frame(t)
+            nxt = [seq.frame(k).gray if k < n else None
+                   for k in (t + 1, t + 2)]
+            s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                         f.obj_rows, t * 0.1, n, next_image=nxt[0],
+                         next_image2=nxt[1])
+        maps[mode] = s.map
+        assert tf.fast_score_pyramid.launches == before + n, mode
+    for a, b in zip(maps["sync"].camera_poses, maps["pipelined"].camera_poses):
+        np.testing.assert_array_equal(a, b)
+    assert maps["sync"].rm_labels == maps["pipelined"].rm_labels
+    assert maps["sync"].rm_labels == maps["chained"].rm_labels
+    for a, b in zip(maps["sync"].camera_poses, maps["chained"].camera_poses):
+        assert np.linalg.norm(a[:3, 3] - b[:3, 3]) < 0.02
 
 
 @pytest.mark.gpu

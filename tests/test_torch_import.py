@@ -11,7 +11,7 @@ import torch
 
 from sdpl_slam_torch.models.map_state import MapState
 from sdpl_slam_torch.models.system import System
-from sdpl_slam_torch.models.tracking import Tracking
+from sdpl_slam_torch.models.tracking import Tracking, check_supported
 from sdpl_slam_torch.ops.geometry import Intrinsics
 from sdpl_slam_torch.solvers import ba_builder
 from sdpl_slam_torch.utils.synthetic import (SynthConfig, lba_settings,
@@ -114,16 +114,19 @@ def test_batch_ba_settings_accepted(global_ba):
 @pytest.mark.parametrize("field,value,item", [
     ("resident_tracking", True, "A10"),
     ("chained_tracking", True, "A14"),
+    ("chained_depth", 3, "A14"),          # with chained_tracking = True
     ("pipelined_tracking", True, "A5"),
     ("run_local_ba", True, "A12"),        # with ba_schur = True
     ("run_global_ba", True, "A12"),
     ("run_global_ba", None, "A12"),       # None fires on KITTI
 ])
-def test_unsupported_settings_raise(field, value, item):
-    """The chained and pipelined modes (A14, A5) are refused.  The A10 and
-    A12 cases were refused too and now run: ``resident_tracking`` without
-    the joint optimiser takes the host path, as in the JAX package (ROADMAP
-    C1), and ``ba_schur`` with a batch BA on takes the dense-Schur step."""
+def test_formerly_refused_settings_run(field, value, item):
+    """Every setting ``check_supported`` once refused builds a CPU
+    ``System`` and keeps its value: ``resident_tracking`` without the joint
+    optimiser takes the host path, as in the JAX package (ROADMAP C1);
+    ``ba_schur`` with a batch BA on takes the dense-Schur step (A12); the
+    chained loop at depths 2 and 3 (A14) and the pipelined host path (A5)
+    run."""
     s = _settings()
     setattr(s, field, value)
     if field == "run_global_ba" and value is None:
@@ -132,12 +135,11 @@ def test_unsupported_settings_raise(field, value, item):
         s.ba_schur = True                  # the dense-Schur BA step
     if item == "A10":
         s.use_joint_optimization = False
-    if item in ("A10", "A12"):
-        system = System(s, verbose=False, device="cpu")
-        assert getattr(system.settings, field) is value
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        System(s, verbose=False, device="cpu")
+    if field == "chained_depth":
+        s.chained_tracking = True
+    check_supported(s)
+    system = System(s, verbose=False, device="cpu")
+    assert getattr(system.settings, field) == value
 
 
 def test_schur_without_batch_ba_runs():
@@ -184,14 +186,17 @@ def test_nonjoint_setting_runs():
 
 
 def test_pipelined_default_is_off():
-    """The port's ``Settings`` default to synchronous frames, so a yaml
-    that does not name the key builds a ``System``."""
+    """(Named for the port's old default.)  The port's ``Settings`` default
+    to the pipelined host path, as the JAX package's do, and a yaml that
+    does not name the key builds a ``System`` with it."""
     from sdpl_slam_torch.utils.config import Settings, load_settings
 
-    assert Settings().pipelined_tracking is False
+    assert Settings().pipelined_tracking is True
     s = load_settings(ROOT / "examples" / "kitti.yaml")
-    assert s.pipelined_tracking is False
-    System(ROOT / "examples" / "kitti.yaml", verbose=False, device="cpu")
+    assert s.pipelined_tracking is True
+    system = System(ROOT / "examples" / "kitti.yaml", verbose=False,
+                    device="cpu")
+    assert system.settings.pipelined_tracking is True
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             System(ROOT / "examples" / "kitti.yaml", verbose=False)

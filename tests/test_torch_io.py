@@ -41,13 +41,13 @@ def test_flat_yaml_matches_pyyaml(name):
 @pytest.mark.parametrize("name", YAMLS)
 def test_shipped_yaml_loads_and_system_constructs(name):
     """``System(settings.yaml)`` constructs from every shipped file, with
-    the same settings as the JAX package reads apart from the port's
-    ``pipelined_tracking`` default."""
+    the same settings as the JAX package reads, ``pipelined_tracking``'s
+    default (on) included."""
     path = ROOT / "examples" / (name + ".yaml")
     ours = dataclasses.asdict(config.load_settings(path))
     theirs = dataclasses.asdict(jax_config.load_settings(path))
-    assert ours.pop("pipelined_tracking") is False
-    assert theirs.pop("pipelined_tracking") is True
+    assert ours["pipelined_tracking"] is True
+    assert theirs["pipelined_tracking"] is True
     assert ours == theirs
     system = System(path, verbose=False, device="cpu")
     assert system.settings.width > 0 and system.settings.use_lines
