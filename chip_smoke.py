@@ -81,6 +81,18 @@
    order), card and CPU must agree on the final cost and the window poses
    (tolerances below), and the Schur step's cost may be at most 1.05 times
    the CG step's.
+12. Descriptor phase: ORB for the selected keypoints (the FAST pyramid, one
+   launch a frame, then the tracker's background and per-object caps) and
+   LBD for the detected lines of the first disk-phase frames, on the card
+   and on the CPU on the same inputs: the bits equal except where the two
+   compared values lie within 1e-5 on either side; the Hamming matrix and
+   mutual matches of frame t against t+1 identical on both; wall ms and
+   kernel launches a call.
+13. Sharded BA phase (``parallel.sharded_ba``): a world of one under NCCL on
+   the disk phase's global graph, and a gloo world of 4 ranks on the one
+   card on the 500-frame ``synth_big_graph`` (both layouts), each step
+   against ``batch_ba.ba_gn_step`` on one device; the partitioned LM run
+   (3 iterations); the ``parallel.dryrun`` twin in a gloo world of 4.
 
 Any failure raises (non-zero exit).  The last two lines of standard
 output are the kernels' JSON line and ``{"ok": true, "device": ...}``.
@@ -1351,6 +1363,308 @@ def cpu_check(root, loaded, first, cuda_map):
     return err
 
 
+N_DESC = 4             # disk-phase frames of the descriptor phase
+DESC_TIE = 1e-5        # two compared values this close may order either way
+SHARD_LAM = 1e-4
+SHARD_CG = 10
+# the JAX package's 500-frame sharded test graph (tests/test_sharded_ba.py)
+SHARD_BIG = dict(F=500, stat_per_frame=44, obs_per_stat=3, dyn_per_frame=28)
+SHARD_WORLD = 4
+# one step against the single-device step: tests/test_sharded_ba.py's
+# single-step bounds (cost rtol, camera / motion / point deltas atol)
+SHARD_COST_RTOL, SHARD_DELTA_ATOL = 1e-4, 5e-4
+
+
+def _wall_ms(fn, reps=5):
+    """Median wall ms of ``reps`` synchronised calls (after one warm-up)."""
+    import torch
+
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return sorted(walls)[len(walls) // 2]
+
+
+def _traced_launches(fn):
+    """Kernel launches of one call of ``fn`` under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return _launch_calls(_events(prof))
+
+
+def descriptor_phase(loaded, tracker):
+    """ORB (IC angle, rBRIEF) for the selected keypoints and LBD for the
+    detected lines of the first N_DESC disk-phase frames, on the card and
+    on the CPU on the same keypoints and segments; Hamming matrix and
+    mutual matches of frame t against t+1 on both from the same bits."""
+    import numpy as np
+    import torch
+
+    from sdpl_slam_torch.models import frame_host as fh
+    from sdpl_slam_torch.models.tracking import _np_preprocess_depth
+    from sdpl_slam_torch.ops import fast, lbd, lines, orb
+
+    cfg = tracker.cfg
+    fast.fast_score_pyramid.launches = 0
+    frames = []
+    for t in range(N_DESC):
+        gray, depth_raw, flow, mask = loaded.frame(t)
+        depth = _np_preprocess_depth(np.asarray(depth_raw, np.float32),
+                                     cfg.choose_data, cfg.depth_map_factor,
+                                     cfg.bf)
+        flow = np.ascontiguousarray(flow, np.float32)
+        host = torch.from_numpy(np.ascontiguousarray(gray))
+        card = host.cuda()
+        uv, _, va = fast.detect_keypoints(card, tracker._fast_cfg())
+        uv, va = uv.cpu().numpy(), va.cpu().numpy()
+        bg, _, _, _, bg_ok = fh.select_static_points(
+            uv, va, depth, flow, mask, cfg.th_depth_bg, tracker.NS)
+        kps = [bg[bg_ok]]
+        for lab in np.unique(mask[mask > 0]):
+            o, _, _, _, _, o_ok = fh.select_object_points(
+                depth, flow, np.where(mask == lab, mask, 0),
+                cfg.th_depth_obj, tracker.P_OBJ)
+            kps.append(o[o_ok])
+        kp = np.concatenate(kps).astype(np.float32)
+        seg = _compact(lines.detect_lines(card, tracker._line_cfg()))
+        seg = np.ascontiguousarray(seg[:tracker.NLS], np.float32)
+        frames.append((host, card, kp, seg, len(kps) - 1))
+    launches = fast.fast_score_pyramid.launches
+
+    rows, orb_bits, lbd_bits = [], [], []
+    for host, card, kp, seg, n_obj in frames:
+        kp_c, seg_c = torch.from_numpy(kp).cuda(), torch.from_numpy(seg).cuda()
+        got = {}
+        for name, img, k, s in (("cuda", card, kp_c, seg_c),
+                                ("cpu", host, torch.from_numpy(kp),
+                                 torch.from_numpy(seg))):
+            blur = orb._gaussian_blur_7x7(img)
+            ang = orb.ic_angle(blur, k)
+            patches = orb._gather_patches(blur, k, radius=orb.R_EXT)
+            v1, v2 = orb.descriptor_samples_at_angle(patches, ang)
+            got[name] = dict(
+                bits=orb.brief_descriptors(img, k).cpu().numpy(),
+                ang=ang.cpu().numpy(), v1=v1.cpu().numpy(),
+                v2=v2.cpu().numpy(),
+                lbd=lbd.lbd_descriptors(img, s).cpu().numpy(),
+                lbdf=lbd.lbd_float_descriptors(img, s).cpu().numpy())
+        a, b = got["cuda"], got["cpu"]
+        # a bit may differ only where its two samples tie on either side
+        diff = a["bits"] != b["bits"]
+        tie = ((np.abs(a["v1"] - a["v2"]) < DESC_TIE)
+               | (np.abs(b["v1"] - b["v2"]) < DESC_TIE))
+        orb_bad = int((diff & ~tie).sum())
+        c = lbd._COMBINATIONS
+        lgap = np.minimum(*(np.abs(f.reshape(-1, 9, 8)[:, c[:, 0]]
+                                   - f.reshape(-1, 9, 8)[:, c[:, 1]])
+                            .reshape(-1, 256) for f in (a["lbdf"], b["lbdf"])))
+        ldiff = a["lbd"] != b["lbd"]
+        lbd_bad = int((ldiff & (lgap >= DESC_TIE)).sum())
+        rows.append(dict(
+            kp=len(kp), n_obj=n_obj, seg=len(seg),
+            orb_diff=int(diff.sum()), orb_tie=int((diff & tie).sum()),
+            orb_bad=orb_bad,
+            ang_diff=int((a["ang"] != b["ang"]).sum()),
+            ang_err=float(np.abs(a["ang"] - b["ang"]).max()),
+            lbd_diff=int(ldiff.sum()), lbd_bad=lbd_bad,
+            lbd_err=float(np.abs(a["lbdf"] - b["lbdf"]).max())))
+        orb_bits.append(a["bits"])
+        lbd_bits.append(a["lbd"])
+        if orb_bad or lbd_bad:
+            raise AssertionError(
+                "descriptor phase: card and CPU bits differ away from ties: "
+                "ORB %d, LBD %d" % (orb_bad, lbd_bad))
+
+    # matching: the card's bits, frame t against t+1, on both devices
+    match = []
+    for t in range(N_DESC - 1):
+        for kind, bits in (("orb", orb_bits), ("lbd", lbd_bits)):
+            A, B = (torch.from_numpy(x) for x in (bits[t], bits[t + 1]))
+            ham_c = orb.hamming_distance_matrix(A.cuda(), B.cuda()).cpu()
+            idx_c, ok_c = (x.cpu() for x in orb.match_descriptors(A.cuda(),
+                                                                  B.cuda()))
+            ham_h = orb.hamming_distance_matrix(A, B)
+            idx_h, ok_h = orb.match_descriptors(A, B)
+            same = (torch.equal(ham_c, ham_h) and torch.equal(idx_c, idx_h)
+                    and torch.equal(ok_c, ok_h))
+            if not same:
+                raise AssertionError("descriptor phase: %s Hamming matrix "
+                                     "or matches differ, card vs CPU" % kind)
+            match.append((t, kind, tuple(ham_c.shape), int(ok_c.sum())))
+
+    host, card, kp, seg, _ = frames[0]
+    kp_c, seg_c = torch.from_numpy(kp).cuda(), torch.from_numpy(seg).cuda()
+    A = torch.from_numpy(orb_bits[0]).cuda()
+    B = torch.from_numpy(orb_bits[1]).cuda()
+    calls = dict(
+        brief=lambda: orb.brief_descriptors(card, kp_c),
+        lbd=lambda: lbd.lbd_descriptors(card, seg_c),
+        match=lambda: orb.match_descriptors(A, B))
+    timing = {k: (_wall_ms(f), _traced_launches(f)) for k, f in calls.items()}
+    return dict(rows=rows, match=match, timing=timing, launches=launches)
+
+
+def _max_abs_diff(a, b):
+    """max |a - b| of two arrays or tensors (0 when empty)."""
+    import numpy as np
+
+    d = np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64))
+    return float(d.max()) if d.size else 0.0
+
+
+def _sharded_worker(rank, world, port, out_dir):
+    """A rank of the gloo world on the one card: the 500-frame graph's
+    step in both layouts (rank 0 also the single-device step), each timed
+    on its second call, then the partitioned LM run; rank 0 writes the
+    figures."""
+    import numpy as np
+    import torch
+
+    from sdpl_slam_torch.parallel import sharded_ba
+    from sdpl_slam_torch.solvers import batch_ba as bb
+    from sdpl_slam_torch.utils.synthetic import synth_big_graph
+
+    dev = sharded_ba.init_world(rank, world, port, "cuda")
+    try:
+        mesh = sharded_ba.make_mesh(world)
+        graph, n_edges = synth_big_graph(**SHARD_BIG, device=dev)
+        w = bb.BAWeights()
+        out = dict(n_edges=n_edges, backend=torch.distributed.get_backend())
+        if rank == 0:
+            d, cost, _, _ = bb.ba_gn_step(graph, bb.initial_state(graph), w,
+                                          SHARD_LAM, cg_iters=SHARD_CG)
+            ref = {k: v.cpu().numpy() for k, v in d.items()}
+            out["single_cost"] = float(cost)
+            out["cost0"] = float(bb._cost_only(graph, bb.initial_state(graph),
+                                               w))
+        for name, shard in (("replicated", sharded_ba.shard_graph),
+                            ("partitioned",
+                             sharded_ba.shard_graph_partitioned)):
+            sg = shard(graph, mesh)
+
+            def step():
+                return sharded_ba.sharded_ba_step(
+                    sg, sharded_ba.state_from_graph(sg), w, SHARD_LAM, mesh,
+                    cg_iters=SHARD_CG)
+
+            step()          # first use (and the other ranks' start-up)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d, cost, _, _ = step()
+            torch.cuda.synchronize()
+            r = dict(ms=(time.perf_counter() - t0) * 1e3, cost=float(cost),
+                     bytes=sharded_ba.variable_bytes_per_device(sg))
+            if rank == 0:
+                r["delta_err"] = {k: _max_abs_diff(d[k].cpu(), ref[k])
+                                  for k in ("cam", "mot", "xs", "xd")}
+            out[name] = r
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, cost = sharded_ba.run_sharded_ba(
+            graph, w, mesh, max_iters=3, cg_iters=SHARD_CG, partitioned=True)
+        torch.cuda.synchronize()
+        out["run"] = dict(ms=(time.perf_counter() - t0) * 1e3, cost=cost,
+                          finite=bool(torch.isfinite(state.cam_T).all()))
+        if rank == 0:
+            with open(os.path.join(out_dir, "sharded.json"), "w") as f:
+                json.dump(out, f)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def sharded_phase(cuda_map, settings):
+    """(a) a world of one under NCCL on the card: the sharded step on the
+    disk phase's global graph against the single-device step; (b) a gloo
+    world of SHARD_WORLD ranks on the one card: both layouts' steps on the
+    500-frame graph against the single-device step, and the partitioned LM
+    run; (c) the dryrun twin in a gloo world of SHARD_WORLD on the card."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.parallel import dryrun, sharded_ba
+    from sdpl_slam_torch.solvers import ba_builder
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    out = {}
+    graph, _ = ba_builder.build_graph(
+        cuda_map, Intrinsics.from_config(settings), 0, cuda_map.n_frames,
+        motion_init_identity=True, prior_info=1e5, device="cuda")
+    w = ba_builder._weights_from_cfg(settings)
+    state = bb.initial_state(graph)
+    d1, c1, _, _ = bb.ba_gn_step(graph, state, w, SHARD_LAM,
+                                 cg_iters=SHARD_CG)
+    sharded_ba.init_world(0, 1, dryrun.free_port(), "cuda")
+    try:
+        mesh = sharded_ba.make_mesh(1)
+        sg = sharded_ba.shard_graph(graph, mesh)
+        t0 = time.perf_counter()
+        d2, c2, _, _ = sharded_ba.sharded_ba_step(
+            sg, sharded_ba.state_from_graph(sg), w, SHARD_LAM, mesh,
+            cg_iters=SHARD_CG)
+        torch.cuda.synchronize()
+        out["one"] = dict(
+            backend=dist.get_backend(), ms=(time.perf_counter() - t0) * 1e3,
+            edges=sum(int(getattr(graph, f).sum()) for f in graph._fields
+                      if f.endswith("_valid") and f[:-6] in (
+                          "odo", "smo", "sp", "sl", "dp", "tern", "dl",
+                          "ltern")),
+            frames=cuda_map.n_frames, cost=float(c2), single=float(c1),
+            delta_err={k: _max_abs_diff(d1[k].cpu(), d2[k].cpu())
+                       for k in ("cam", "mot", "xs", "xd")})
+    finally:
+        dist.destroy_process_group()
+    one = out["one"]
+    if (one["backend"] != "nccl"
+            or abs(one["cost"] - one["single"]) > SHARD_COST_RTOL
+            * abs(one["single"])
+            or max(one["delta_err"].values()) > SHARD_DELTA_ATOL):
+        raise AssertionError("sharded phase: the world-1 step differs from "
+                             "the single-device step: %r" % one)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        mp.spawn(_sharded_worker, args=(SHARD_WORLD, dryrun.free_port(), tmp),
+                 nprocs=SHARD_WORLD, join=True)
+        with open(os.path.join(tmp, "sharded.json")) as f:
+            big = json.load(f)
+    big["wall_s"] = time.perf_counter() - t0
+    out["big"] = big
+    for name in ("replicated", "partitioned"):
+        r = big[name]
+        if (abs(r["cost"] - big["single_cost"]) > SHARD_COST_RTOL
+                * abs(big["single_cost"])
+                or max(r["delta_err"].values()) > SHARD_DELTA_ATOL):
+            raise AssertionError("sharded phase: the %s step of the world of "
+                                 "%d differs from the single-device step: %r"
+                                 % (name, SHARD_WORLD, r))
+    if big["backend"] != "gloo" or big["n_edges"] < 40_000:
+        raise AssertionError("sharded phase: %s world, %d edges"
+                             % (big["backend"], big["n_edges"]))
+    run = big["run"]
+    if not (run["finite"] and np.isfinite(run["cost"])
+            and run["cost"] < big["cost0"]):
+        raise AssertionError("sharded phase: the partitioned LM run did not "
+                             "lower the cost: %r" % run)
+
+    t0 = time.perf_counter()
+    out["dryrun_cost"] = dryrun.dryrun_multichip(SHARD_WORLD, device="cuda")
+    out["dryrun_s"] = time.perf_counter() - t0
+    return out
+
+
 def main():
     import numpy as np
     import torch
@@ -1692,6 +2006,35 @@ def main():
               % (kt["res_launches"], kt["res_labels"], kt["worst_t"],
                  kt["worst_r"]))
 
+        t0 = time.perf_counter()
+        ds = descriptor_phase(loaded, res["system"].tracker)
+        print("descriptor phase: ORB (IC angle, rBRIEF) for the selected "
+              "keypoints and LBD for the detected lines (cap %d) of the "
+              "first %d disk-phase frames, on the card and on the CPU on "
+              "the same keypoints and segments (%.1f s); FAST launches %d "
+              "(1 a frame)" % (res["system"].tracker.NLS, N_DESC,
+                               time.perf_counter() - t0, ds["launches"]))
+        print("  frame keypoints objects segments  ORB: bits differ (at a "
+              "sample tie / elsewhere), angles differ, max angle diff  LBD: "
+              "bits differ (elsewhere), max float diff")
+        for t, r in enumerate(ds["rows"]):
+            print("  %5d %9d %7d %8d  %d (%d / %d), %d, %.3g  %d (%d), "
+                  "%.3g" % (t, r["kp"], r["n_obj"], r["seg"], r["orb_diff"],
+                            r["orb_tie"], r["orb_bad"],
+                            r["ang_diff"], r["ang_err"], r["lbd_diff"],
+                            r["lbd_bad"], r["lbd_err"]))
+        print("  Hamming matrix and mutual matches (max distance 64), frame "
+              "t against t+1 from the card's bits: identical on the card and "
+              "the CPU; %s" % ", ".join(
+                  "%d %s %dx%d %d matched" % (t, kind, sh[0], sh[1], n)
+                  for t, kind, sh, n in ds["match"]))
+        for name, (ms, n) in ds["timing"].items():
+            print("  %s on the card, frame 0: %.2f ms wall a call (median of "
+                  "5), %d kernel launches" % (name, ms, n))
+        if ds["launches"] != N_DESC:
+            raise AssertionError("descriptor phase: %d FAST launches for %d "
+                                 "frames" % (ds["launches"], N_DESC))
+
     ms, n, (t_err, r_err) = generator_phase(
         seq, N_INJECTED, "injected path", RPE_T_GATE, RPE_R_GATE)
     print("injected phase: %d generator frames, lines injected, no BA: "
@@ -1707,6 +2050,41 @@ def main():
               N_NONJOINT, ms, n, t_err, r_err, NONJOINT_T_GATE,
               NONJOINT_R_GATE))
     ba_phase(res["system"].map, res["system"].settings)
+
+    t0 = time.perf_counter()
+    sh = sharded_phase(res["system"].map, res["system"].settings)
+    one, big = sh["one"], sh["big"]
+    print("sharded BA phase (%.1f s): one damped GN step, %d CG iterations, "
+          "lambda %g; cost rtol %g and camera / motion / point deltas atol "
+          "%g against batch_ba.ba_gn_step on one device" % (
+              time.perf_counter() - t0, SHARD_CG, SHARD_LAM, SHARD_COST_RTOL,
+              SHARD_DELTA_ATOL))
+    print("  world of 1 (%s) on the disk phase's global graph (%d frames, "
+          "%d edges): cost %.9g against %.9g, max delta diff %s; %.1f ms"
+          % (one["backend"], one["frames"], one["edges"], one["cost"],
+             one["single"], {k: "%.3g" % v for k, v in
+                             one["delta_err"].items()}, one["ms"]))
+    print("  world of %d (%s, %d ranks on the one card) on synth_big_graph "
+          "F=%d (%d edges); single-device cost %.9g:" % (
+              SHARD_WORLD, big["backend"], SHARD_WORLD, SHARD_BIG["F"],
+              big["n_edges"], big["single_cost"]))
+    for name in ("replicated", "partitioned"):
+        r = big[name]
+        print("    %s: cost %.9g, max delta diff %s, %.1f ms a step, "
+              "variable bytes a rank %d" % (
+                  name, r["cost"], {k: "%.3g" % v for k, v in
+                                    r["delta_err"].items()}, r["ms"],
+                  r["bytes"]))
+    run = big["run"]
+    print("    run_sharded_ba(partitioned=True), 3 LM iterations: cost %.9g "
+          "-> %.9g in %.1f ms; variable bytes a rank %d partitioned against "
+          "%d replicated (%.2fx); the world's call %.1f s" % (
+              big["cost0"], run["cost"], run["ms"],
+              big["partitioned"]["bytes"], big["replicated"]["bytes"],
+              big["replicated"]["bytes"] / big["partitioned"]["bytes"],
+              big["wall_s"]))
+    print("  dryrun twin (above): %.1f s, cost %.6g" % (sh["dryrun_s"],
+                                                       sh["dryrun_cost"]))
     print("total: %.1f s" % (time.perf_counter() - t_start))
 
     print(json.dumps({"kernels": [{

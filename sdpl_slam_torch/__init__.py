@@ -1,5 +1,5 @@
 """SDPL-SLAM in PyTorch: the dynamic point-line RGB-D SLAM pipeline of
-``sdpl_slam_tpu`` on plain PyTorch tensors, with hand-written CUDA kernels
+the JAX package on plain PyTorch tensors, with hand-written CUDA kernels
 for Hopper where the JAX package used Pallas.
 
 Layout mirrors the JAX package so each module's counterpart is easy to find:
@@ -28,7 +28,7 @@ import torch as _torch
 
 # Metric SLAM geometry cannot tolerate TF32 (about three decimal digits):
 # the JAX package forces full-f32 matmuls for the same reason
-# (sdpl_slam_tpu/__init__.py), so the port turns TF32 off for matmuls and
+# (the JAX package's ``__init__.py``), so the port turns TF32 off for matmuls and
 # for cuDNN, whose float32 default is TF32.
 _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False

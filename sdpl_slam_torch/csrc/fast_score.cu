@@ -1,7 +1,7 @@
 // FAST-9/16 corner response for Hopper (sm_90a): every level of one or
 // more image pyramids, both thresholds, in one launch.
 //
-// Replaces the Pallas TPU kernel sdpl_slam_tpu/ops/fast.py::
+// Replaces the JAX package's Pallas TPU kernel ops/fast.py::
 // fast_score_map_pallas (pallas_call at :119), which detect_keypoints calls
 // twice per pyramid level.  For every pixel, with d_i = ring_i - centre
 // over the 16 Bresenham radius-3 ring offsets (OpenCV FAST_9_16 order):

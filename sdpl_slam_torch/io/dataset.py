@@ -15,7 +15,7 @@ Replicates reference example/sdpl_slam.cc:164-466 (``LoadData`` /
                                      (reference src/Tracking.cc:3134)
 
 The readers return numpy arrays.  Numpy copy of
-``sdpl_slam_tpu.io.dataset``; where the native reader (``io/native.py``)
+the JAX package's ``io.dataset``; where the native reader (``io/native.py``)
 does not load, PNGs are decoded by ``io/png.py`` (zlib + numpy) instead
 of OpenCV.  :func:`png_decoder` names the one in use.
 """

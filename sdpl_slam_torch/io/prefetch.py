@@ -4,7 +4,7 @@ The reference loads every frame synchronously inside the main loop
 (reference example/sdpl_slam.cc:99-153): imread x2, readOpticalFlow,
 LoadMask -- all on the critical path.  Here a background thread pool
 decodes frames ahead of the tracking loop so host I/O overlaps device
-compute (``sdpl_slam_tpu.io.prefetch``, unchanged).
+compute (the JAX package's ``io.prefetch``, unchanged).
 """
 
 from __future__ import annotations

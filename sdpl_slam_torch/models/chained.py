@@ -1,5 +1,5 @@
 """Chained tracking: the resident core fed by host-pushed SAMPLES
-(counterpart of ``sdpl_slam_tpu.models.chained``).
+(counterpart of the JAX package's ``models.chained``).
 
 The device-resident loop (models/resident.py) keeps the feature state on
 the device, but takes the dense depth / flow / mask planes every frame.

@@ -1,4 +1,4 @@
-"""Frame feature ops on tensors (counterpart of ``sdpl_slam_tpu.models.frame``).
+"""Frame feature ops on tensors (counterpart of the JAX package's ``models.frame``).
 
 Every feature family lives in a fixed-capacity tensor with a validity
 mask, so a frame's selections are gathers and wheres on its device with

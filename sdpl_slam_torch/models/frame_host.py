@@ -4,7 +4,7 @@ The per-frame dense-maps -> feature-arrays transition produces small
 arrays whose consumers are host bookkeeping (renewal, map appends), so
 the selections, the frame-to-frame inheritance and the line track filter
 run on the host; the solvers run on the tracker's device.  Identical to
-``sdpl_slam_tpu.models.frame_host``.
+the JAX package's ``models.frame_host``.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Device-resident frame loop: the whole per-frame pipeline against device
-state (counterpart of ``sdpl_slam_tpu.models.resident``).
+state (counterpart of the JAX package's ``models.resident``).
 
 The tracked-feature state stays on the tracker's device between frames:
 frame t+1's step consumes frame t's renewal output device to device, the

@@ -1,6 +1,6 @@
 """System facade: the reference's public API surface
 (reference include/System.h:41-52, src/System.cc:22-64), as in
-``sdpl_slam_tpu.models.system``.
+the JAX package's ``models.system``.
 
 ``System(settings, device=...).track_rgbd(...)`` + ``save_results(dir)``,
 ``save_checkpoint`` / ``load_checkpoint`` and ``start_profiler_trace`` /

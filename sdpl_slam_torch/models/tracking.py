@@ -1,6 +1,6 @@
 """Tracking: the per-frame dynamic-SLAM pipeline (host tracking path).
 
-Counterpart of ``sdpl_slam_tpu.models.tracking`` (the reference
+Counterpart of the JAX package's ``models.tracking`` (the reference
 ``Tracking``, Tracking.cc):
 
   GrabImageRGBD (Tracking.cc:179)  ->  Tracking.grab_rgbd
@@ -235,7 +235,7 @@ class Tracking:
         self.NLO = self.MAXO * self.L_OBJ
         self.N_CAND = 3000                               # static candidates
         self.NL_CAND = max(2 * self.NLS, 64)             # line candidates
-        # GetInitModelCam's RANSAC budget (sdpl_slam_tpu tracking.py)
+        # GetInitModelCam's RANSAC budget (the JAX package's tracking.py)
         self.n_hyp_cam, self.n_hyp_obj = n_hypotheses(settings)
 
         self.f_id = 0
@@ -966,7 +966,7 @@ class Tracking:
 
         One departure from the JAX package: its non-joint object chain
         hands the init the inverse of the last pose where the init
-        expects the pose itself (``sdpl_slam_tpu`` models/tracking.py
+        expects the pose itself (the JAX package's models/tracking.py
         ``_dispatch_objects_legacy``), so its object inlier sets are taken
         against misplaced world points from the second tracked frame on.
         Here the init takes the pose, as on the joint path."""

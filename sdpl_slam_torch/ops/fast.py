@@ -1,6 +1,6 @@
 """Vectorised FAST corner detection + pyramid + grid distribution.
 
-Counterpart of ``sdpl_slam_tpu.ops.fast``: an 8-level image pyramid (scale
+Counterpart of the JAX package's ``ops.fast``: an 8-level image pyramid (scale
 1.2), the FAST-9/16 segment test with the ini/min two-pass thresholds, and
 spatially even retention by per-cell top-k on a regular grid.
 

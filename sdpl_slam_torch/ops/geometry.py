@@ -2,7 +2,7 @@
 Pluecker lines, the orthonormal 4-dof line parameterisation and the line
 residual primitives of batch BA, image-space infinite lines.
 
-Counterpart of ``sdpl_slam_tpu.ops.geometry``; everything broadcasts over
+Counterpart of the JAX package's ``ops.geometry``; everything broadcasts over
 leading batch dimensions.
 """
 

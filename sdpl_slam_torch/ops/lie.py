@@ -1,6 +1,6 @@
 """SO(3)/SE(3) Lie-group operations on batched torch tensors.
 
-Same conventions as ``sdpl_slam_tpu.ops.lie`` (the g2o math the reference
+Same conventions as the JAX package's ``ops.lie`` (the g2o math the reference
 relies on):
 
 * A pose is a 4x4 homogeneous matrix ``T``; batches carry leading dims
@@ -142,7 +142,7 @@ def so3_orthonormalize(R: torch.Tensor) -> torch.Tensor:
     """One Newton step of the polar decomposition, ``R (3I - R^T R) / 2``:
     projects a near-rotation back onto SO(3) so chained f32 compositions do
     not drift from orthonormality, which the clamped-trace rotation metric
-    would read as phantom rotation error (``sdpl_slam_tpu.ops.lie``)."""
+    would read as phantom rotation error (the JAX package's ``ops.lie``)."""
     RtR = R.transpose(-1, -2) @ R
     return 0.5 * (R @ (3.0 * _eye(3, R) - RtR))
 

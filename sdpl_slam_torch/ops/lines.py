@@ -1,6 +1,6 @@
 """Line-segment detection: the LSD / EDLines replacement.
 
-Counterpart of ``sdpl_slam_tpu.ops.lines``, stage for stage.  The
+Counterpart of the JAX package's ``ops.lines``, stage for stage.  The
 reference detects lines with LSD (region growing over level-lines) or
 EDLines (edge drawing) inside 3rdparty/line_descriptor (reference
 src/Lineextractor.cc:47-135); both are sequential, data-dependent region
@@ -174,6 +174,20 @@ def _sobel(img: torch.Tensor):
         - (p[:-2, :-2] + 2 * p[:-2, 1:-1] + p[:-2, 2:])
     )
     return gx, gy
+
+
+def _grad_mag(gx: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
+    """|g| rounded as the JAX package's compiled detector rounds it: XLA
+    fuses ``sqrt(gx * gx + gy * gy)`` into ``fma(gx, gx, gy * gy)`` and a
+    correctly rounded square root.  Both are taken here in float64 and
+    rounded to float32 after each (``gx * gx`` is exact there), so the card
+    and the CPU agree; torch's float32 CPU square root is off by one ulp on
+    some CPUs.  One ulp in a tile's weights moves a horizontal segment off
+    an integer row, and the NFA gate's ``floor`` sampling then reads other
+    pixel rows."""
+    gx64 = gx.to(torch.float64)
+    s = (gx64 * gx64 + (gy * gy).to(torch.float64)).to(torch.float32)
+    return torch.sqrt(s.to(torch.float64)).to(torch.float32)
 
 
 def _neighbours(mag: torch.Tensor):
@@ -573,7 +587,7 @@ def _merge_rounds(seg, ok, cfg: LineDetectConfig):
 def _detect_octave(img: torch.Tensor, cfg: LineDetectConfig) -> Segments:
     """Single-octave detection on ``img``'s own pixel grid."""
     gx, gy = _sobel(img)
-    mag = torch.sqrt(gx * gx + gy * gy)
+    mag = _grad_mag(gx, gy)
     if cfg.mode == 1:
         edge = _ed_edges(mag, gx, gy, cfg.grad_threshold)
     else:

@@ -17,7 +17,7 @@ the fidelity ORACLE for the production tiled-PCA detector
 (ops/lines.py), giving the a-contrario false-detection control the
 production path approximates.  tests/test_torch_lines.py measures the
 production detector's recall/precision/endpoint error against it.
-Numpy copy of ``sdpl_slam_tpu.ops.lsd_oracle``.
+Numpy copy of the JAX package's ``ops.lsd_oracle``.
 
 Not a copy of OpenCV/IPOL code; written from the algorithm spec:
 R. Grompone von Gioi, J. Jakubowicz, J.-M. Morel, G. Randall,

@@ -1,6 +1,6 @@
 """Batched RANSAC rigid-pose initialisation (the cv::solvePnPRansac stand-in).
 
-Counterpart of ``sdpl_slam_tpu.ops.ransac``: every hypothesis is a minimal
+Counterpart of the JAX package's ``ops.ransac``: every hypothesis is a minimal
 3-point 3D-3D alignment by orthonormal triads, all solved at once, scored
 by reprojection of last-frame 3D through the candidate pose against the
 current 2D position (inlier at < 0.4 px, the reference's criterion).

@@ -1,5 +1,5 @@
 """MapState -> BAGraph construction and the two BA entry points
-(counterpart of ``sdpl_slam_tpu.solvers.ba_builder``).
+(counterpart of the JAX package's ``solvers.ba_builder``).
 
 ``full_batch_optimization`` = FullBatchOptimizationWithLines
 (Optimizer.cc:3876): the whole sequence, motion vertices initialised to

@@ -1,7 +1,7 @@
 """Per-frame solvers: the joint flow+pose / flow+object-motion LM, batched
 over lanes, and the pose-only LM of the non-joint path.
 
-Counterpart of ``sdpl_slam_tpu.solvers.frame_solvers.solve_flow_pose``
+Counterpart of the JAX package's ``solvers.frame_solvers.solve_flow_pose``
 (reference Optimizer.cc:6409 ``PoseOptimizationFlow2CamWithLines`` and
 :7603 ``PoseOptimizationFlow2withLines``): one SE(3) vertex plus one
 marginalised 2-dof flow per point and 4-dof flow per line.  Every flow

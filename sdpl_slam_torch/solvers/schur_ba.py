@@ -1,5 +1,5 @@
 """Dense-Schur direct step for window-scale batch BA (counterpart of
-``sdpl_slam_tpu.solvers.schur_ba``).
+the JAX package's ``solvers.schur_ba``).
 
 The g2o back end eliminates the landmark vertices by a Schur complement
 before it solves the reduced (pose + motion) system (``BlockSolver``; every

@@ -1,7 +1,7 @@
 """Carry state from the JAX package into this one.
 
 There are no weights: what a run carries is its ``Settings`` and the
-tracker's per-sequence state -- the fields ``sdpl_slam_tpu``'s
+tracker's per-sequence state -- the fields the JAX package's
 ``System.save_checkpoint`` pickles.  With these a JAX run can be stopped
 mid-sequence and continued here, and both can take the same next frame
 from the same state.  A JAX batch-BA graph converts too, so both packages
@@ -28,7 +28,7 @@ TRACKER_FIELDS = ("f_id", "max_id", "velocity", "origin_inv", "last",
 
 
 def settings_from_jax(jax_settings) -> Settings:
-    """Field-by-field copy of a ``sdpl_slam_tpu`` ``Settings``."""
+    """Field-by-field copy of the JAX package's ``Settings``."""
     ours = {f.name for f in dataclasses.fields(Settings)}
     src = dataclasses.asdict(jax_settings)
     missing = ours - set(src)
@@ -38,7 +38,7 @@ def settings_from_jax(jax_settings) -> Settings:
 
 
 def line_config_from_jax(jax_cfg):
-    """A ``sdpl_slam_tpu.ops.lines.LineDetectConfig`` as this package's."""
+    """The JAX package's ``ops.lines.LineDetectConfig`` as this package's."""
     from ..ops.lines import LineDetectConfig
 
     return LineDetectConfig(**jax_cfg._asdict())
@@ -124,7 +124,7 @@ def tracker_state_from_jax(tracker, state: dict) -> None:
 
 
 def graph_from_jax(jax_graph, device):
-    """A ``sdpl_slam_tpu`` ``BAGraph`` (padded; its padding rows flagged
+    """The JAX package's ``BAGraph`` (padded; its padding rows flagged
     invalid) as this package's ``BAGraph`` on ``device``, field by field:
     floats keep their dtype, indices become int64."""
     out = {}
@@ -140,7 +140,7 @@ def graph_from_jax(jax_graph, device):
 
 
 def resident_state_from_jax(jax_state, device):
-    """A ``sdpl_slam_tpu`` resident ``ResidentState`` as this package's
+    """The JAX package's resident ``ResidentState`` as this package's
     ``models.resident.ResidentState`` on ``device``, field by field with
     the same dtypes (float32, int32, bool)."""
     from ..models.resident import ResidentState

@@ -471,3 +471,123 @@ def lba_settings(cfg: SynthConfig) -> "Settings":
     s.window_size = 20
     s.overlap_size = 4
     return s
+
+
+def synth_big_graph(F: int = 120, stat_per_frame: int = 150,
+                    obs_per_stat: int = 4, dyn_per_frame: int = 150,
+                    n_objects: int = 2, seed: int = 0, device="cuda"):
+    """A KITTI-length global BA graph made directly, without running the
+    tracker (the copy of ``tests/test_sharded_ba.py``'s ``_synth_big_graph``
+    with this package's Lie ops): a forward camera trajectory with a gentle
+    yaw and its odometry; static points born each frame and observed in
+    the next ``obs_per_stat`` frames; ``n_objects`` motions a frame with
+    their smoothness pairs; dynamic points chained across adjacent frames
+    by ternary edges.  No line vertices (each line family holds one invalid
+    vertex and no edge).  Measurements carry 1 cm noise and the point
+    vertices start 2 cm off.  Returns (BAGraph on ``device``, the edge
+    count ~F*(stat*obs + 2*dyn))."""
+    from ..solvers.batch_ba import BAGraph
+    from .device import checked_device
+
+    dev = checked_device(device, "synth_big_graph")
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+
+    # camera trajectory: forward motion, gentle yaw
+    t = np.arange(F, dtype=np.float64)
+    xi = np.stack([0 * t, 0.005 * t, 0 * t, 0.1 * t, 0 * t, 0.6 * t], 1)
+    cam_T = lie.se3_exp(torch.from_numpy(xi.astype(f32))).numpy()
+
+    # static points: born per frame, observed in the next obs_per_stat
+    Ps = F * stat_per_frame
+    Xs = rng.uniform([-12, -2, 4], [12, 2, 50], (Ps, 3)).astype(f32)
+    born = np.repeat(np.arange(F), stat_per_frame)
+    sp_cam, sp_pt = [], []
+    for k in range(obs_per_stat):
+        fidx = born + k
+        ok = fidx < F
+        sp_cam.append(fidx[ok])
+        sp_pt.append(np.nonzero(ok)[0])
+    sp_cam = np.concatenate(sp_cam)
+    sp_pt = np.concatenate(sp_pt)
+    T_cw = np.linalg.inv(cam_T)
+    sp_meas = np.einsum("eij,ej->ei", T_cw[sp_cam, :3, :3], Xs[sp_pt]) \
+        + T_cw[sp_cam, :3, 3]
+    sp_meas = (sp_meas + rng.normal(0, 0.01, sp_meas.shape)).astype(f32)
+
+    # objects: F * n_objects motions; dynamic points chained across
+    # adjacent frames by ternary edges
+    M = F * n_objects
+    mot_T = np.tile(np.eye(4, dtype=f32), (M, 1, 1))
+    mot_T[:, 2, 3] = 0.9
+    smo_i = np.arange(M - n_objects)
+    smo_j = smo_i + n_objects
+
+    Pd = F * dyn_per_frame
+    obj_of = np.repeat(
+        np.tile(np.arange(n_objects), dyn_per_frame // n_objects), F)[:Pd]
+    frame_of = np.repeat(np.arange(F), dyn_per_frame)
+    base = rng.uniform([-3, -1, 8], [3, 1, 30],
+                       (dyn_per_frame, 3)).astype(f32)
+    shift = np.zeros((F, 1, 3), f32)
+    shift[:, 0, 2] = 0.9 * np.arange(F)
+    Xd = (base[None] + shift).reshape(Pd, 3)
+    dp_cam = frame_of
+    dp_pt = np.arange(Pd)
+    dp_meas = np.einsum("eij,ej->ei", T_cw[dp_cam, :3, :3], Xd[dp_pt]) \
+        + T_cw[dp_cam, :3, 3]
+    dp_meas = (dp_meas + rng.normal(0, 0.01, dp_meas.shape)).astype(f32)
+    # ternary: point at frame t-1 -> the same row at frame t via motion(t, obj)
+    cur = np.nonzero(frame_of > 0)[0]
+    tern_prev = cur - dyn_per_frame
+    tern_mot = frame_of[cur] * n_objects + obj_of[cur % dyn_per_frame]
+
+    # the test's graph draws a camera perturbation it multiplies by 0; the
+    # draw is kept so that the point perturbations below are the same
+    rng.normal(0, 1e-3, cam_T.shape)
+    Xs0 = (Xs + rng.normal(0, 0.02, Xs.shape)).astype(f32)
+    Xd0 = (Xd + rng.normal(0, 0.02, Xd.shape)).astype(f32)
+
+    def ft(a, *shape):
+        return torch.as_tensor(np.asarray(a, f32).reshape((-1,) + shape),
+                               device=dev)
+
+    def it(a):
+        return torch.as_tensor(np.asarray(a, np.int64), device=dev)
+
+    def ones(n):
+        return torch.ones(n, dtype=torch.bool, device=dev)
+
+    def none(n=0):
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+
+    empty = it(np.zeros(0))
+    eye3 = ft(np.eye(3), 3, 3)
+    g = BAGraph(
+        cam_T0=ft(cam_T, 4, 4), cam_valid=ones(F),
+        prior_frame=0, prior_meas=ft(cam_T[0], 4, 4)[0],
+        prior_info=torch.tensor(1e5, dtype=torch.float32, device=dev),
+        odo_i=it(np.arange(F - 1)), odo_j=it(np.arange(1, F)),
+        odo_meas=ft(np.einsum("eij,ejk->eik", T_cw[:-1], cam_T[1:]), 4, 4),
+        odo_valid=ones(F - 1),
+        mot_T0=ft(mot_T, 4, 4), mot_valid=ones(M),
+        smo_i=it(smo_i), smo_j=it(smo_j), smo_valid=ones(len(smo_i)),
+        Xs0=ft(Xs0, 3), Xs_valid=ones(Ps),
+        sp_cam=it(sp_cam), sp_pt=it(sp_pt), sp_meas=ft(sp_meas, 3),
+        sp_valid=ones(len(sp_cam)),
+        Ls_U0=eye3, Ls_w0=ft([[1.0, 0.1]], 2), Ls_valid=none(1),
+        sl_cam=empty, sl_line=empty, sl_meas=ft(np.zeros((0, 6)), 6),
+        sl_valid=none(),
+        Xd0=ft(Xd0, 3), Xd_valid=ones(Pd),
+        dp_cam=it(dp_cam), dp_pt=it(dp_pt), dp_meas=ft(dp_meas, 3),
+        dp_valid=ones(Pd),
+        tern_prev=it(tern_prev), tern_cur=it(cur), tern_mot=it(tern_mot),
+        tern_valid=ones(len(cur)),
+        Ld_U0=eye3.clone(), Ld_w0=ft([[1.0, 0.1]], 2), Ld_valid=none(1),
+        dl_cam=empty, dl_line=empty, dl_meas=ft(np.zeros((0, 6)), 6),
+        dl_valid=none(),
+        ltern_prev=empty, ltern_cur=empty, ltern_mot=empty,
+        ltern_valid=none(),
+    )
+    n_edges = len(sp_cam) + len(dp_cam) + len(cur) + len(smo_i) + F - 1
+    return g, n_edges

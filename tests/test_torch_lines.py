@@ -479,6 +479,20 @@ def test_oracle_copy_is_the_jax_packages(fidelity_runs):
         segs, jax_oracle.detect_pyramid(img, n_octaves=2)[:, :4])
 
 
+def test_fidelity_scenes_match_jax(fidelity_runs):
+    """The whole detector on the three fidelity scenes: the same segment
+    count as the JAX package's compiled ``detect_lines``, and each port
+    segment's endpoints within 1e-3 px of its own JAX segment (a
+    one-to-one pairing)."""
+    for img, _, det in fidelity_runs:
+        ref = np.asarray(jl.detect_lines_np(img.astype(np.float32)))
+        assert len(det) == len(ref), (len(det), len(ref))
+        dist = np.abs(det[:, None, :] - ref[None, :, :]).max(-1)
+        pair = dist.argmin(1)
+        assert len(set(pair.tolist())) == len(ref)
+        assert dist[np.arange(len(det)), pair].max() <= 1e-3, dist.min(1)
+
+
 def test_recall_vs_oracle(fidelity_runs):
     recalls = [_detector_fidelity(o, d)[0] for _, o, d in fidelity_runs]
     assert np.mean(recalls) >= 0.75 and min(recalls) >= 0.6, recalls

@@ -1,0 +1,190 @@
+"""sdpl_slam_torch.parallel.sharded_ba on a gloo CPU world of 8 processes,
+spawned once for the module: twins of tests/test_sharded_ba.py, held to the
+port's and the JAX package's single-device step.
+
+The graph is tests/test_sharded_ba.py's: the JAX package tracks 5 frames of
+the 6-frame 320x96 sequence with one object, and its global graph (padded,
+every edge type) is carried over by ``utils.convert.graph_from_jax``.  The
+KITTI-length graphs come from ``utils.synthetic.synth_big_graph``.
+
+Tolerances, as stated at each test: one step against a single-device step,
+cost within rtol 1e-4 and the camera, motion and point deltas within atol
+5e-4 (tests/test_sharded_ba.py's single-step bounds; the line deltas sit in
+near-singular blocks and are left out there too); partitioned against
+replicated, the same bounds for a step and rtol 1e-3 for a 3-iteration LM
+run (the JAX 500-frame test's).
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from sdpl_slam_tpu.models.system import System as JaxSystem
+from sdpl_slam_tpu.solvers import ba_builder as jbb
+from sdpl_slam_tpu.solvers import batch_ba as jba
+from sdpl_slam_torch.parallel import dryrun, sharded_ba
+from sdpl_slam_torch.solvers import batch_ba as tba
+from sdpl_slam_torch.utils.convert import graph_from_jax
+from sdpl_slam_torch.utils.synthetic import synth_big_graph
+from synthetic import SynthConfig, SynthSequence, synth_settings
+
+torch.set_num_threads(2)
+
+WORLD = 8
+LAM = 1e-4
+CG_ITERS = 10
+WELL_DETERMINED = ("cam", "mot", "xs", "xd")
+# tests/test_sharded_ba.py's memory-test graph (48 frames): every point
+# family divisible by 8
+BIG = dict(F=48, stat_per_frame=80, dyn_per_frame=80)
+
+
+def _worker(rank, port, graph, out_dir):
+    torch.set_num_threads(1)
+    sharded_ba.init_world(rank, WORLD, port, "cpu")
+    try:
+        mesh = sharded_ba.make_mesh(WORLD)
+        w = tba.BAWeights()
+        out = {}
+        big, n_edges = synth_big_graph(**BIG, device="cpu")
+        for name, g in (("small", graph), ("big", big)):
+            for layout, shard in (("rep", sharded_ba.shard_graph),
+                                  ("par", sharded_ba.shard_graph_partitioned)):
+                sg = shard(g, mesh)
+                d, cost, gain, n_cg = sharded_ba.sharded_ba_step(
+                    sg, sharded_ba.state_from_graph(sg), w, LAM, mesh,
+                    cg_iters=CG_ITERS)
+                out[name, layout] = dict(
+                    d={k: v.clone() for k, v in d.items()}, cost=float(cost),
+                    gain=float(gain),
+                    bytes=sharded_ba.variable_bytes_per_device(sg))
+        for layout in (False, True):
+            state, cost = sharded_ba.run_sharded_ba(
+                graph, w, mesh, max_iters=3, cg_iters=CG_ITERS,
+                partitioned=layout)
+            out["run", layout] = dict(cost=cost, cam_T=state.cam_T.clone())
+            _, cost = sharded_ba.run_sharded_ba(
+                big, w, mesh, max_iters=3, cg_iters=CG_ITERS,
+                partitioned=layout)
+            out["big_run", layout] = dict(cost=cost)
+        out["n_edges"] = n_edges
+        if rank == 0:
+            torch.save(out, os.path.join(out_dir, "out.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def jax_graph():
+    """tests/test_sharded_ba.py's graph, built by the JAX package."""
+    cfg = SynthConfig(n_frames=6, n_objects=1, width=320, height=96,
+                      fx=180.0, fy=180.0, cx=160.0, cy=48.0)
+    settings = synth_settings(cfg)
+    settings.max_track_point_bg = 128
+    settings.max_track_point_obj = 64
+    settings.max_static_lines = 16
+    settings.max_objects = 2
+    settings.min_object_points = 20
+    settings.min_pnp_inliers_obj = 15
+    settings.run_local_ba = False
+    system = JaxSystem(settings, verbose=False)
+    seq = SynthSequence(cfg)
+    for t in range(5):
+        f = seq.frame(t)
+        system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                          f.obj_rows, t * 0.1, 5, line_detections=f.lines)
+    g, _ = jbb.build_graph(system.map, system.tracker.K, 0,
+                           system.map.n_frames)
+    return g
+
+
+@pytest.fixture(scope="module")
+def world(jax_graph, tmp_path_factory):
+    """The 8-process world's results (rank 0's)."""
+    out_dir = tmp_path_factory.mktemp("sharded")
+    graph = graph_from_jax(jax_graph, "cpu")
+    mp.spawn(_worker, args=(dryrun.free_port(), graph, str(out_dir)),
+             nprocs=WORLD, join=True)
+    return graph, torch.load(out_dir / "out.pt")
+
+
+def _close(d, cost, d_ref, cost_ref):
+    np.testing.assert_allclose(cost, cost_ref, rtol=1e-4, atol=1e-6)
+    for k in WELL_DETERMINED:
+        np.testing.assert_allclose(np.asarray(d[k]), np.asarray(d_ref[k]),
+                                   rtol=0, atol=5e-4, err_msg=k)
+
+
+def test_sharded_step_matches_single_device(jax_graph, world):
+    """One damped-GN step over 8 ranks (replicated layout) against the
+    port's single-device ``ba_gn_step`` and the JAX package's on the same
+    graph, state and damping."""
+    graph, out = world
+    res = out["small", "rep"]
+    d1, cost1, _, _ = tba.ba_gn_step(graph, tba.initial_state(graph),
+                                     tba.BAWeights(), LAM, cg_iters=CG_ITERS)
+    _close(res["d"], res["cost"], {k: v.numpy() for k, v in d1.items()},
+           float(cost1))
+    state = jba.BAState(
+        cam_T=jax_graph.cam_T0, mot_T=jax_graph.mot_T0, Xs=jax_graph.Xs0,
+        Ls_U=jax_graph.Ls_U0, Ls_w=jax_graph.Ls_w0, Xd=jax_graph.Xd0,
+        Ld_U=jax_graph.Ld_U0, Ld_w=jax_graph.Ld_w0)
+    dj, costj, _ = jax.jit(jba.ba_gn_step, static_argnames=("cg_iters", "w"))(
+        jax_graph, state, jba.BAWeights(), jnp.asarray(LAM, jnp.float32),
+        cg_iters=CG_ITERS)
+    # JAX's padded rows carry zero deltas; the port's graph keeps them too
+    _close(res["d"], res["cost"], {k: np.asarray(v) for k, v in dj.items()},
+           float(costj))
+
+
+def test_sharded_run_converges(world):
+    """The sharded LM run (3 iterations) is finite and lowers the cost."""
+    graph, out = world
+    cost0 = float(tba._cost_only(graph, tba.initial_state(graph),
+                                 tba.BAWeights()))
+    for layout in (False, True):
+        res = out["run", layout]
+        assert np.isfinite(res["cost"]) and res["cost"] <= cost0 + 1e-9
+        assert torch.isfinite(res["cam_T"]).all()
+
+
+def test_partitioned_equals_replicated(world):
+    """The partitioned layout (sorted edge blocks, split variables) against
+    the replicated one: one step on the tracked graph and on the 48-frame
+    graph, and a 3-iteration LM run on each.  On the well-conditioned
+    48-frame graph the gain denominators agree to rtol 1e-4 too (the
+    tracked graph's near-singular line blocks move it by rounding)."""
+    _, out = world
+    assert out["n_edges"] >= 20_000
+    for name in ("small", "big"):
+        par, rep = out[name, "par"], out[name, "rep"]
+        _close(par["d"], par["cost"], rep["d"], rep["cost"])
+    np.testing.assert_allclose(out["big", "par"]["gain"],
+                               out["big", "rep"]["gain"], rtol=1e-4)
+    for key in ("run", "big_run"):
+        np.testing.assert_allclose(out[key, True]["cost"],
+                                   out[key, False]["cost"], rtol=1e-3)
+
+
+def test_partitioned_variable_memory_shrinks(world):
+    """A rank of the partitioned layout holds at most a quarter of the
+    variable bytes a rank of the replicated layout holds (8 ranks; the
+    camera, motion and point families divide by 8, the line families
+    stay replicated)."""
+    _, out = world
+    b_rep, b_par = out["big", "rep"]["bytes"], out["big", "par"]["bytes"]
+    assert b_par <= b_rep / 4, (b_rep, b_par)
+
+
+def test_dryrun_twin(capsys):
+    """dryrun_multichip's twin: the tiny tracked sequence's global graph
+    through the partitioned sharded BA in an 8-process CPU world."""
+    cost = dryrun.dryrun_multichip(WORLD, device="cpu")
+    assert np.isfinite(cost)
+    out = capsys.readouterr().out
+    assert "dryrun_multichip OK: 8-process world (gloo" in out
