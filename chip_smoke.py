@@ -35,14 +35,20 @@
 5. Resident phase: the first 20 of the same files tracked again with
    ``resident_tracking = True`` (the whole frame on the card against device
    state, FAST and the line detector inside the step, the map stream two
-   frames behind), the window BA at frame 19.  Checks:
-   one FAST launch a frame, label streams identical to the disk phase's
-   host run, camera poses of frames 0-18 within the North-star gates of
-   that run (relative motion within 1 % of the GT motion and 0.03 deg),
-   the RPE gates; one steady frame under
-   ``torch.cuda.set_sync_debug_mode("warn")`` may call no synchronising
-   operation beyond its LM loop-exit reads; one under torch.profiler for
-   its launches; the median wall of a call, LM reads a frame, peak memory.
+   frames behind), the window BA at frame 19.  On the card the frame runs
+   as one launch of its captured CUDA graph, both joint LMs ending on the
+   device in WHILE nodes (``csrc/graph_while.cu``).  Checks:
+   one FAST launch a frame (counted per replay), label streams identical
+   to the disk phase's host run, camera poses of frames 0-18 within the
+   North-star gates of that run (relative motion within 1 % of the GT
+   motion and 0.03 deg), the RPE gates; on frames 1-8 the eager step (the
+   plain version) from the same state and inputs gives state and output
+   buffers equal to the graph's bit for bit, the two timed in turns; no LM
+   host read in the phase; one steady frame under
+   ``torch.cuda.set_sync_debug_mode("warn")`` calls no synchronising
+   operation; one under torch.profiler for its host launch calls, device
+   kernels and idle share (and one eager frame beside it); the first
+   capture's seconds, the median wall of a call, peak memory.
 6. Pipelined phase: the same 20 files with ``pipelined_tracking = True``
    and the next frames' images as hints (frame t+1's detectors run on a
    side stream during frame t; a frame's finish runs at the start of the
@@ -99,6 +105,7 @@ output are the kernels' JSON line and ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits non-zero and prints no result.
 """
 
+import concurrent.futures
 import importlib.util
 import json
 import math
@@ -108,6 +115,7 @@ import sys
 import tempfile
 import time
 
+CUDA_SOURCES = ("fast_score.cu", "graph_while.cu")  # built at start
 N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
@@ -873,15 +881,16 @@ def _pose_gates(ref, got, gt):
 
 
 def _loop_run(system, loaded, frames, hints=False, sync_frame=None,
-              trace_frame=None, trace_exclude=()):
+              trace_frame=None, trace_exclude=(), steady_skip=()):
     """Track ``frames`` (the first ``len(frames)`` of the loaded files)
     through ``system`` on the card, the next frames' images passed as hints
     when ``hints``.  Just before the last frame, the map is read (a reader
     drains and finishes every frame before it): its camera poses and
     motions are the run's snapshot before that frame's window BA.  Frame
     ``sync_frame`` runs under ``torch.cuda.set_sync_debug_mode("warn")``,
-    frame ``trace_frame`` under torch.profiler.  Returns the measurements;
-    FAST launches and LM reads are counted over this run alone."""
+    frame ``trace_frame`` under torch.profiler.  The steady median leaves
+    out the frames in ``steady_skip``.  Returns the measurements; FAST
+    launches and LM reads are counted over this run alone."""
     import warnings
 
     import numpy as np
@@ -933,16 +942,16 @@ def _loop_run(system, loaded, frames, hints=False, sync_frame=None,
                 key = "%s:%d" % (os.path.relpath(w.filename), w.lineno)
                 sync_sites[key] = sync_sites.get(key, 0) + 1
         elif i == trace_frame:
+            t_tr = time.perf_counter()
             with profile(activities=[ProfilerActivity.CPU,
                                      ProfilerActivity.CUDA]) as prof:
                 pose = track(i)
                 torch.cuda.synchronize()
+            wall = (time.perf_counter() - t_tr) * 1e3
             events = _events(prof)
-            dev = [(name, us) for name, us in _device_events(
-                events, ("frame",) + tuple(trace_exclude))
-                if not name.startswith(("Memcpy", "Memset"))]
-            trace = dict(launches=_launch_calls(events), kernels=len(dev),
-                         busy_ms=sum(us for _, us in dev) / 1e3)
+            trace = _trace_summary(events, wall,
+                                   ("frame",) + tuple(trace_exclude))
+            trace["launches"] = _launch_calls(events)
         else:
             pose = track(i)
         call_ms.append((time.perf_counter() - t0) * 1e3)
@@ -951,7 +960,8 @@ def _loop_run(system, loaded, frames, hints=False, sync_frame=None,
             raise AssertionError("frame %d: pose not a finite 4x4" % i)
     torch.cuda.synchronize()
     steady = [x for i, x in enumerate(call_ms)
-              if 2 <= i < n - 1 and i not in (sync_frame, trace_frame)]
+              if 2 <= i < n - 1 and i not in (sync_frame, trace_frame)
+              and i not in steady_skip]
     return dict(call_ms=call_ms, reads=reads, snap=snap, motions=motions,
                 sync_calls=sync_calls, sync_sites=sync_sites, trace=trace,
                 loop_s=time.perf_counter() - t_loop,
@@ -999,6 +1009,138 @@ def _check_loop(system, run, n, what, host_map, host_before_window,
 
 
 SYNC_FRAME, TRACE_FRAME = 10, 11   # device loops: sync debug, profiler
+COMPARE_FRAMES = range(1, 9)       # resident: the graph against the eager step
+EAGER_TRACE_FRAME = 8              # resident: one eager step under the profiler
+
+
+class _GraphAgainstEager:
+    """Wraps ``ResidentProgram.__call__`` while active: on the frames in
+    ``COMPARE_FRAMES`` an eager twin of the graph program (the plain
+    version, on buffers of its own) runs the same frame from the same state
+    and inputs, the two in turns (eager first on odd frames), each timed
+    with a synchronize on both sides and its peak memory read; the state
+    and output buffers must agree bit for bit.  The twin's FAST launches
+    are taken back from the counter and its LM reads are not the
+    tracker's: they are comparisons, not the main path."""
+
+    def __init__(self):
+        self.rows, self.eager_trace, self.capture_s = [], None, None
+        self._frame = 0
+
+    def __enter__(self):
+        from sdpl_slam_torch.models import resident as res
+
+        self._res = res
+        self._call = res.ResidentProgram.__call__
+        twins = {}
+
+        def both(prog):
+            if not prog.graph:
+                return self._call(prog)
+            self._frame += 1
+            if self._frame not in COMPARE_FRAMES:
+                return self._call(prog)
+            return self._compare(prog, twins.setdefault(id(prog),
+                                                         prog.eager_twin()))
+
+        res.ResidentProgram.__call__ = both
+        return self
+
+    def __exit__(self, *exc):
+        self._res.ResidentProgram.__call__ = self._call
+        return False
+
+    def _timed(self, fn, trace=False):
+        import torch
+        from torch.profiler import ProfilerActivity, profile
+
+        from sdpl_slam_torch.ops import fast
+
+        launches = fast.fast_score_pyramid.launches
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        if trace:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                r = fn()
+                torch.cuda.synchronize()
+        else:
+            ev[0].record()
+            r = fn()
+            ev[1].record()
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        tr = _trace_summary(_events(prof), ms) if trace else None
+        return (r, ms, torch.cuda.max_memory_allocated(),
+                fast.fast_score_pyramid.launches - launches, tr,
+                None if trace else ev[0].elapsed_time(ev[1]))
+
+    def _compare(self, prog, twin):
+        import torch
+
+        from sdpl_slam_torch.ops import fast
+
+        for dst, src in zip(twin.state, prog.state):
+            dst.copy_(src)
+        for k, t in prog.inp.items():
+            twin.inp[k].copy_(t)
+        trace = self._frame == EAGER_TRACE_FRAME
+        order = ("eager", "graph") if self._frame % 2 else ("graph", "eager")
+        got = {}
+        for who in order:
+            got[who] = self._timed(twin if who == "eager" else
+                                   (lambda: self._call(prog)),
+                                   trace=trace and who == "eager")
+        # the twin's FAST launch is a comparison: take it back
+        fast.fast_score_pyramid.launches -= got["eager"][3]
+        if self.capture_s is None:
+            self.capture_s = prog.capture_s
+        bad = [name for name, a, b in zip(self._res.ResidentState._fields,
+                                          twin.state, prog.state)
+               if not torch.equal(a, b)]
+        if not torch.equal(twin.out, prog.out):
+            bad.append("out")
+        self.rows.append(dict(frame=self._frame, bad=bad,
+                              eager_ms=got["eager"][1],
+                              graph_ms=got["graph"][1],
+                              eager_peak=got["eager"][2],
+                              graph_peak=got["graph"][2],
+                              eager_ev_ms=got["eager"][5],
+                              graph_ev_ms=got["graph"][5],
+                              eager_reads=got["eager"][0]))
+        if trace:
+            self.eager_trace = got["eager"][4]
+        return got["graph"][0]
+
+
+def _trace_summary(events, wall_ms, exclude=()):
+    """Host calls that enqueue device work, device kernels and their ms,
+    and the device's idle share over a traced call of ``wall_ms``."""
+    host = [name for cuda, name, _, _ in events if not cuda]
+    graphs = sum("GraphLaunch" in n for n in host)
+    kernels = sum("LaunchKernel" in n for n in host)
+    copies = sum(("Memcpy" in n or "Memset" in n) for n in host)
+    dev = [(name, us) for name, us in _device_events(events, exclude)
+           if not name.startswith(("Memcpy", "Memset"))]
+    busy = sum(us for _, us in dev) / 1e3
+    # the device's own span: first kernel start to last kernel end
+    spans = [(t0, t1) for cuda, name, t0, t1 in events
+             if cuda and name not in exclude
+             and not name.startswith(("Memcpy", "Memset"))]
+    span = ((max(t1 for _, t1 in spans) - min(t0 for t0, _ in spans)) / 1e3
+            if spans else 0.0)
+    # host reads of a device value: the host blocks until the card drains
+    reads = [t1 - t0 for cuda, name, t0, t1 in events
+             if not cuda and name == "aten::_local_scalar_dense"]
+    return dict(host_calls=graphs + kernels + copies, graph_launches=graphs,
+                kernel_launches=kernels, copies=copies, kernels=len(dev),
+                busy_ms=busy, wall_ms=wall_ms, span_ms=span,
+                idle=max(0.0, 1.0 - busy / wall_ms),
+                idle_span=max(0.0, 1.0 - busy / span) if span else 0.0,
+                reads=len(reads),
+                read_ms=sum(reads) / 1e3)
 
 
 def resident_phase(root, loaded, host_map, host_before_window):
@@ -1016,11 +1158,29 @@ def resident_phase(root, loaded, host_map, host_before_window):
     system = System(_loop_settings(root, resident_tracking=True),
                     verbose=False)
     frames = [loaded.frame(i) for i in range(N_RESIDENT)]
-    run = _loop_run(system, loaded, frames, sync_frame=SYNC_FRAME,
-                    trace_frame=TRACE_FRAME, trace_exclude=("resident_step",))
+    with _GraphAgainstEager() as cmp:
+        run = _loop_run(system, loaded, frames, sync_frame=SYNC_FRAME,
+                        trace_frame=TRACE_FRAME,
+                        trace_exclude=("resident_step",),
+                        steady_skip=COMPARE_FRAMES)
     rpe, n_obj, labels, ref = _check_loop(
         system, run, N_RESIDENT, "resident path", host_map,
         host_before_window)
+    if [r["frame"] for r in cmp.rows] != list(COMPARE_FRAMES):
+        raise AssertionError("resident path: compared frames %s, expected %s"
+                             % ([r["frame"] for r in cmp.rows],
+                                list(COMPARE_FRAMES)))
+    for r in cmp.rows:
+        if r["bad"]:
+            raise AssertionError("resident path frame %d: the graph's %s "
+                                 "differ from the eager step's"
+                                 % (r["frame"], r["bad"]))
+    if sum(run["reads"]) or run["sync_calls"]:
+        raise AssertionError("resident path: %d LM host reads (%s), %d "
+                             "synchronising calls in frame %d (%s)" % (
+                                 sum(run["reads"]), run["reads"],
+                                 run["sync_calls"], SYNC_FRAME,
+                                 run["sync_sites"]))
     if not labels:
         raise AssertionError("resident path: label streams differ from the "
                              "host run's: %s vs %s" % (
@@ -1033,7 +1193,9 @@ def resident_phase(root, loaded, host_map, host_before_window):
                              "part from the host run's by %.4f of the "
                              "motion / %.4f deg" % (worst_t, worst_r))
     return dict(run, rpe=rpe, n_obj=n_obj, worst_t=worst_t, worst_r=worst_r,
-                ba_runs=system.tracker.ba_runs, n_poses=len(ref))
+                ba_runs=system.tracker.ba_runs, n_poses=len(ref),
+                cmp=cmp.rows, eager_trace=cmp.eager_trace,
+                capture_s=cmp.capture_s)
 
 
 def pipelined_phase(root, loaded, host_map, host_before_window,
@@ -1685,8 +1847,12 @@ def main():
     print("nvidia-smi:", smi)
 
     t0 = time.perf_counter()
-    lib = cuda_build.build("fast_score.cu")
-    print("build: %s in %.1f s" % (os.path.relpath(lib), time.perf_counter() - t0))
+    # one nvcc a source, all started together
+    with concurrent.futures.ThreadPoolExecutor(len(CUDA_SOURCES)) as ex:
+        libs = list(ex.map(cuda_build.build, CUDA_SOURCES))
+    print("build: %s in %.1f s" % (", ".join(os.path.relpath(x) for x in libs),
+                                   time.perf_counter() - t0))
+    lib = libs[0]
     ptxas = lib.with_suffix(".ptxas.txt")
     if ptxas.exists():
         for ln in ptxas.read_text().splitlines():
@@ -1846,22 +2012,69 @@ def main():
               "camera poses of frames 0-%d against that run: worst %.5f of "
               "the per-frame motion, %.5f deg (gates 0.01, 0.03 deg)"
               % (rs["n_poses"] - 1, rs["worst_t"], rs["worst_r"]))
-        print("  wall ms per track_rgbd call (the map stream lags 2 frames, "
-              "so a call ends before its frame's copy lands): median %.2f "
-              "over the steady frames; all %s; loop %.1f s"
-              % (rs["steady_ms"], [round(x, 2) for x in rs["call_ms"]],
-                 rs["loop_s"]))
-        print("  LM host reads per frame %s; FAST launches %d (1 a frame); "
-              "peak device memory %.1f MiB" % (
+        print("  [%s] wall ms per track_rgbd call (the map stream lags 2 "
+              "frames, so a call ends before its frame's copy lands): median "
+              "%.2f over the steady frames past the compared ones; all %s "
+              "(frames %d-%d also run the eager step); loop %.1f s"
+              % (smi, rs["steady_ms"], [round(x, 2) for x in rs["call_ms"]],
+                 COMPARE_FRAMES[0], COMPARE_FRAMES[-1], rs["loop_s"]))
+        print("  LM host reads per frame %s; FAST launches %d (1 a frame, "
+              "counted per graph replay); peak device memory %.1f MiB" % (
                   rs["reads"], rs["launches"], rs["peak"] / 2 ** 20))
         print("  sync debug mode over frame %d: %d synchronising calls, %d "
               "LM exit reads (%s)" % (SYNC_FRAME, rs["sync_calls"],
                                       rs["reads"][SYNC_FRAME],
                                       rs["sync_sites"]))
-        t = rs["trace"]
-        print("  frame 11 under torch.profiler: %d kernel launches (runtime "
-              "calls), %d device kernels summing %.2f ms" % (
-                  t["launches"], t["kernels"], t["busy_ms"]))
+        cm = rs["cmp"]
+        steady = [r for r in cm if r["frame"] >= 2]
+
+        def med(key):
+            v = sorted(r[key] for r in steady)
+            return v[len(v) // 2]
+
+        print("  [%s] graph against eager step on frames %d-%d, from the "
+              "same state and inputs: state and output buffers bit-identical "
+              "on %d of %d frames; first capture (warm-up, capture, stitch) "
+              "%.2f s" % (smi, cm[0]["frame"], cm[-1]["frame"],
+                          sum(not r["bad"] for r in cm), len(cm),
+                          rs["capture_s"]))
+        print("  [%s] wall ms a step call (synchronized), in turns on frames "
+              "%d-%d: graph median %.3f, eager median %.3f (%.1fx); graph "
+              "%s; eager %s; eager LM host reads %s; peak MiB during the "
+              "call: graph %.1f, eager %.1f" % (
+                  smi, steady[0]["frame"], steady[-1]["frame"],
+                  med("graph_ms"), med("eager_ms"),
+                  med("eager_ms") / med("graph_ms"),
+                  [round(r["graph_ms"], 3) for r in cm],
+                  [round(r["eager_ms"], 3) for r in cm],
+                  [r["eager_reads"] for r in cm],
+                  med("graph_peak") / 2 ** 20, med("eager_peak") / 2 ** 20))
+        t, e = rs["trace"], rs["eager_trace"]
+        ev = sorted(r["graph_ev_ms"] for r in steady
+                    if r["graph_ev_ms"] is not None)
+        ev_med = ev[len(ev) // 2]
+        print("  [%s] frame %d under torch.profiler (whole track_rgbd call, "
+              "graph): %d host calls enqueueing device work (%d graph "
+              "launches, %d kernel launches, %d copies), %d device kernels "
+              "summing %.2f ms; their span on the device %.2f ms (idle %.1f "
+              "%% of it), the traced call %.2f ms wall (idle %.1f %% of it); "
+              "CUDA events around a graph step on frames %d-%d: median %.3f "
+              "ms, so the card is idle %.1f %% of a graph step" % (
+                  smi, TRACE_FRAME, t["host_calls"], t["graph_launches"],
+                  t["kernel_launches"], t["copies"], t["kernels"],
+                  t["busy_ms"], t["span_ms"], 100 * t["idle_span"],
+                  t["wall_ms"], 100 * t["idle"], steady[0]["frame"],
+                  steady[-1]["frame"], ev_med,
+                  100 * max(0.0, 1 - t["busy_ms"] / ev_med)))
+        print("  [%s] frame %d's eager step under torch.profiler: %d host "
+              "calls (%d kernel launches, %d copies), %d device kernels "
+              "summing %.2f ms in %.2f ms wall, device idle %.1f %%; %d host "
+              "reads of a device value (aten::_local_scalar_dense) blocking "
+              "the host %.2f ms (graph frame: %d reads, %.2f ms)" % (
+                  smi, EAGER_TRACE_FRAME, e["host_calls"],
+                  e["kernel_launches"], e["copies"], e["kernels"],
+                  e["busy_ms"], e["wall_ms"], 100 * e["idle"], e["reads"],
+                  e["read_ms"], t["reads"], t["read_ms"]))
         for r in rs["ba_runs"]:
             print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
                   % (r["kind"], r["frame"], r["ms"], r["iterations"],

@@ -593,6 +593,20 @@ class ChainedDriver(ResidentDriver):
         self.state = None
 
     # -- helpers --------------------------------------------------------
+    def _push(self, a, dtype=None):
+        """A host array on the tracker's device: from pinned memory without
+        a blocking copy on the card, a copy on the CPU."""
+        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
+        if self.tr.device.type != "cuda":
+            return t.clone()
+        return t.pin_memory().to(self.tr.device, non_blocking=True)
+
+    def _set_pose(self, pose_np):
+        """The refined pose into the chained state (a new tensor: the
+        chained step runs eagerly)."""
+        self.state = self.state._replace(
+            pose=torch.as_tensor(pose_np, device=self.tr.device))
+
     def _rebase_identity(self):
         """After a full drain the host base is the live device state: reset
         the device provenance to the identity so family-A gathers stay

@@ -22,6 +22,16 @@ scatters or stable sorts, never ``nonzero`` / ``unique`` / boolean
 indexing, and matrix inverses skip their error check (``inv_ex``).  JAX
 ``vmap`` over object lanes is a leading lane dim here.
 
+The whole frame -- detectors and step, the counterpart of the JAX
+driver's one jitted ``run`` -- is :func:`build_resident_frame`, run by a
+:class:`ResidentProgram` over static buffers: the host copies a frame's
+inputs into them, the program writes the new state and the packed output
+into them.  On the CPU the program runs eagerly.  On the card
+(:func:`graph_resident_step`) it is captured once into CUDA graphs, with
+both joint LMs ending on the device in conditional WHILE nodes
+(``utils.cuda_graphs``), so a frame is one graph launch and the host
+reads nothing back until the lagged output copy.
+
 The per-object host bookkeeping that only feeds the map (GT motions,
 speeds, output rows) stays on the host, consuming the lagged stream.
 """
@@ -31,6 +41,7 @@ from __future__ import annotations
 import collections
 import functools
 import time
+import weakref
 from typing import NamedTuple
 
 import numpy as np
@@ -108,6 +119,14 @@ class ResidentState(NamedTuple):
 
 def _i32(x):
     return x.to(torch.int32)
+
+
+def _np(t) -> np.ndarray:
+    return t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, a.dtype)).dtype
 
 
 def _eye4(like):
@@ -1073,6 +1092,222 @@ def build_resident_step(cfg, K: Intrinsics, caps: dict):
     return step
 
 
+def aux_spec(caps, n_cand: int, nl_cand: int, n_cam: int, n_obj: int):
+    """(name, shape) rows of the frame's small inputs, packed into one
+    float32 buffer (one copy a frame): the GT label tables, the RANSAC
+    draws and the injected point and line candidates (zeros where none)
+    with their valid flags (1.0 / 0.0)."""
+    return [("gt_prev", (16,)), ("gt_cur", (16,)), ("u_cam", (n_cam, 3)),
+            ("u_obj", (caps["MAXO"], n_obj, 3)), ("cand", (n_cand, 2)),
+            ("cand_v", (n_cand,)), ("lcand", (nl_cand, 4)),
+            ("lcand_v", (nl_cand,))]
+
+
+def _unpack_aux(aux, spec) -> dict:
+    out, o = {}, 0
+    for name, shape in spec:
+        n = int(np.prod(shape, dtype=np.int64))
+        out[name] = aux[o:o + n].reshape(shape)
+        o += n
+    return out
+
+
+def build_resident_frame(cfg, K: Intrinsics, caps: dict, n_cand: int,
+                         nl_cand: int, fast_cfg, line_cfg, need_fast: bool,
+                         need_lines: bool, use_grid: bool):
+    """The whole resident frame as one function of device tensors, the
+    counterpart of the JAX driver's jitted ``run``
+    (``ResidentDriver._fn``): FAST and the line detector when the frame
+    needs them, else the injected candidates or the sample grid, then the
+    step.
+
+        run(state, img, depth_raw, flow, mask, aux)
+        -> (new_state, out_buf, lm_host_syncs)
+
+    ``aux`` is the packed float32 buffer of :func:`aux_spec`."""
+    step = build_resident_step(cfg, K, caps)
+    spec = aux_spec(caps, n_cand, nl_cand, *n_hypotheses(cfg))
+
+    def run(state, img, depth_raw, flow, mask, aux):
+        a = _unpack_aux(aux, spec)
+        h, w = mask.shape
+        dev = mask.device
+        if need_fast:
+            uv, _, va = fast_ops.detect_keypoints(img, fast_cfg)
+            n = min(uv.shape[0], n_cand)
+            cand = torch.zeros((n_cand, 2), dtype=torch.float32, device=dev)
+            cand_v = torch.zeros(n_cand, dtype=torch.bool, device=dev)
+            cand[:n] = uv[:n]
+            cand_v[:n] = va[:n]
+        elif use_grid:
+            cand = fr.grid_sample_uv(h, w, n_points=n_cand, device=dev)
+            cand_v = torch.ones(n_cand, dtype=torch.bool, device=dev)
+        else:
+            cand, cand_v = a["cand"], a["cand_v"] > 0.5
+        if need_lines:
+            # the valid segments compacted in order, as the host's uv4[valid]
+            seg = line_ops.detect_lines(img, line_cfg)
+            idx, lv = _first_k(seg.valid, nl_cand)
+            lcand = seg.uv4[idx] * lv[:, None]
+        else:
+            lcand, lv = a["lcand"], a["lcand_v"] > 0.5
+        return step(state, depth_raw, flow, mask, cand, cand_v, lcand, lv,
+                    _i32(a["gt_prev"]), _i32(a["gt_cur"]), a["u_cam"],
+                    a["u_obj"])
+
+    return run
+
+
+class ResidentProgram:
+    """A resident frame function over static buffers: ``state`` (a
+    ResidentState of buffers), the inputs ``inp`` (name -> buffer) and the
+    packed output ``out``.  :meth:`load` copies a frame's host arrays into
+    the inputs; calling the program runs the frame and writes the new
+    state and the output into their buffers, returning the LM host reads.
+
+    Eager, the call runs the function (the plain version; on the CPU and
+    as the card's reference).  With ``graph=True`` (the card) the first
+    call warms the function up on a side stream, puts the state back,
+    and captures it into CUDA graphs (:class:`utils.cuda_graphs.GraphRecorder`:
+    the two LM loops become WHILE nodes); every call then launches the
+    stitched graph and reads nothing on the host.  A failed capture or
+    launch raises; nothing falls back to the eager run."""
+
+    def __init__(self, run, template: ResidentState, inputs: dict,
+                 out_numel: int, device, graph: bool = False):
+        dev = torch.device(device)
+        self.run, self.device, self.graph = run, dev, graph
+        self.state = ResidentState(*(torch.zeros(t.shape, dtype=t.dtype,
+                                                 device=dev)
+                                     for t in template))
+        self.inp = {k: torch.zeros(shape, dtype=dt, device=dev)
+                    for k, (shape, dt) in inputs.items()}
+        self.out = torch.zeros(out_numel, dtype=torch.float32, device=dev)
+        self._owner = None          # the driver whose state the buffers hold
+        self.capture_s = None       # seconds of the warm-up and capture
+        self._graph = None
+        if graph and dev.type != "cuda":
+            raise RuntimeError("ResidentProgram(graph=True) needs a CUDA "
+                               "device, got %s" % dev)
+
+    @property
+    def owner(self):
+        """The driver whose state the buffers hold (weakly held: a memoized
+        program does not keep a dropped system alive)."""
+        return None if self._owner is None else self._owner()
+
+    @owner.setter
+    def owner(self, driver):
+        self._owner = None if driver is None else weakref.ref(driver)
+
+    def load(self, arrays: dict):
+        """Copy host arrays into the input buffers (pinned and
+        non-blocking on the card)."""
+        for name, a in arrays.items():
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if self.device.type == "cuda":
+                self.inp[name].copy_(t.pin_memory(), non_blocking=True)
+            else:
+                self.inp[name].copy_(t)
+
+    def _step(self) -> int:
+        new_state, out, syncs = self.run(self.state, **self.inp)
+        for dst, src in zip(self.state, new_state):
+            dst.copy_(src)
+        self.out.copy_(out)
+        return syncs
+
+    def __call__(self) -> int:
+        if not self.graph:
+            return self._step()
+        if self._graph is None:
+            self._capture()
+        self._graph.launch()
+        return 0
+
+    def eager_twin(self) -> "ResidentProgram":
+        """An eager program of the same frame function over buffers of its
+        own on the same device: the plain version a graph is held to."""
+        return ResidentProgram(
+            self.run, self.state,
+            {k: (tuple(t.shape), t.dtype) for k, t in self.inp.items()},
+            self.out.numel(), self.device, graph=False)
+
+    def _capture(self):
+        from ..utils.cuda_graphs import GraphRecorder
+
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(self.device)
+        keep = [t.clone() for t in self.state]
+        launches = fast_ops.fast_score_pyramid.launches
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            # warm-up: library handles, workspaces and cached constants are
+            # made outside the capture; the frame's state is put back
+            self._step()
+            for dst, src in zip(self.state, keep):
+                dst.copy_(src)
+        fast_ops.fast_score_pyramid.launches = launches
+        torch.cuda.synchronize(self.device)
+        rec = GraphRecorder(counters=[(fast_ops.fast_score_pyramid,
+                                       "launches")])
+        with torch.cuda.stream(side):
+            with rec, fs.loop_runner(rec.loop):
+                self._step()
+        self._graph = rec.stitch()
+        torch.cuda.synchronize(self.device)
+        self.capture_s = time.perf_counter() - t0
+
+
+# resident programs, shared across identically configured drivers (on the
+# card a capture takes a second); the drivers hand the buffers over
+_PROGRAMS: dict = {}
+
+
+def resident_program(cfg, K: Intrinsics, caps: dict, n_cand: int,
+                     nl_cand: int, fast_cfg, line_cfg, modes: tuple,
+                     template: ResidentState, inputs: dict,
+                     device) -> ResidentProgram:
+    """The memoized program of the resident frame on ``device``: one per
+    (settings, caps, detector configs, modes, state shapes, input shapes
+    and dtypes, device).  ``modes`` = (need_fast, need_lines, use_grid);
+    ``template`` gives the state buffers' shapes, ``inputs`` name ->
+    (shape, dtype) the input buffers'.  A graph program on the card
+    (:func:`graph_resident_step`), an eager one on the CPU."""
+    dev = torch.device(device)
+    key = (repr(cfg), (K.fx, K.fy, K.cx, K.cy), repr(sorted(caps.items())),
+           n_cand, nl_cand, repr(fast_cfg), repr(line_cfg), tuple(modes),
+           tuple((tuple(t.shape), t.dtype) for t in template),
+           tuple((k, tuple(s), d) for k, (s, d) in sorted(inputs.items())),
+           str(dev))
+    prog = _PROGRAMS.get(key)
+    if prog is None:
+        run = build_resident_frame(cfg, K, caps, n_cand, nl_cand, fast_cfg,
+                                   line_cfg, *modes)
+        n_out = sum(int(np.prod(shape, dtype=np.int64))
+                    for _, shape, _ in out_spec(caps))
+        prog = _PROGRAMS[key] = ResidentProgram(
+            run, template, inputs, n_out, dev, graph=dev.type == "cuda")
+    return prog
+
+
+def graph_resident_step(cfg, K: Intrinsics, caps: dict, n_cand: int,
+                        nl_cand: int, fast_cfg, line_cfg, modes: tuple,
+                        template: ResidentState, inputs: dict,
+                        device="cuda") -> ResidentProgram:
+    """The memoized graph program of the resident frame on the card, the
+    counterpart of ``jit_resident_step`` and of the JAX driver's jitted
+    ``run`` (arguments as :func:`resident_program`).  Raises without a
+    CUDA device: the CPU runs the eager program."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise RuntimeError("graph_resident_step runs on a CUDA device; the "
+                           "CPU runs the eager program (device=%s)" % dev)
+    return resident_program(cfg, K, caps, n_cand, nl_cand, fast_cfg,
+                            line_cfg, modes, template, inputs, dev)
+
+
 # ---------------------------------------------------------------------------
 # host <-> device state
 # ---------------------------------------------------------------------------
@@ -1180,13 +1415,20 @@ def gt_sem_table(gt_rows, cap: int = 16) -> np.ndarray:
 class ResidentDriver:
     """Drives the device-resident frame loop for a host ``Tracking``.
 
-    Per frame the host computes the GT tables, pushes the image planes
-    and the RANSAC draws (pinned memory, non-blocking), runs the detectors
-    and the step on the device, and starts a non-blocking copy of the
-    packed output into pinned memory with a CUDA event after it.  The map
-    rows drain ``LAG`` frames behind: draining waits on that frame's
-    event.  A window BA drains everything first, and its refined pose goes
-    back into the device state; the last frame drains synchronously."""
+    Per frame the host computes the GT tables and the RANSAC draws, copies
+    them with the image planes into the static input buffers of a
+    :class:`ResidentProgram` (pinned memory, non-blocking), runs the
+    program -- on the card one launch of its captured graph, which reads
+    nothing back -- and starts a non-blocking copy of the packed output
+    buffer into pinned memory with a CUDA event after it, on the same
+    stream, so the next frame cannot overwrite it first.  The map rows
+    drain ``LAG`` frames behind: draining waits on that frame's event.  A
+    window BA drains everything first, and its refined pose is written into
+    the state buffers; the last frame drains synchronously.
+
+    ``state`` is the live ResidentState: the buffers of the program this
+    driver holds, or its own tensors between programs (after ``enter``, or
+    when another driver took the program)."""
 
     LAG = 2
 
@@ -1197,8 +1439,8 @@ class ResidentDriver:
             P=tracker.P_OBJ, L=tracker.L_OBJ, MAXO=tracker.MAXO,
             GCAP=2 * tracker.MAXO)
         self.state = None
+        self.prog = None            # the ResidentProgram holding the state
         self.pending = collections.deque()
-        self.step = build_resident_step(tracker.cfg, tracker.K, self.caps)
         self._prev_gt = None        # (gt_objs, pose_gt) of frame f-1
         self._last_pose = None      # most recent drained pose (T_cw)
         self._ba_frame = -1         # last frame whose window BA ran
@@ -1213,6 +1455,7 @@ class ResidentDriver:
     # -- mode transitions ----------------------------------------------
     def enter(self):
         tr = self.tr
+        self._leave_program()
         self.state = state_from_host(
             tr.last, tr.last_meta, tr.max_id, tr.velocity, tr.last_mask_np,
             tr.last_flow_np, tr.MAXO, tr.device)
@@ -1232,58 +1475,88 @@ class ResidentDriver:
         tr.last_mask_np = self.state.last_mask.cpu().numpy()
         tr.last_flow_np = self.state.last_flow.cpu().numpy()
         tr.mask_np = tr.last_mask_np.copy()
+        if self.prog is not None and self.prog.owner is self:
+            self.prog.owner = None
+        self.prog = None
         self.state = None
 
-    # -- per frame -----------------------------------------------------
-    def _push(self, a, dtype=None):
-        """A host array on the tracker's device: from pinned memory without
-        a blocking copy on the card, a copy on the CPU."""
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
-        if self.tr.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.tr.device, non_blocking=True)
+    # -- the program and its buffers -------------------------------------
+    def _leave_program(self):
+        """Keep this driver's state in its own tensors and give up its
+        program's buffers."""
+        if self.prog is not None and self.prog.owner is self:
+            self.state = ResidentState(*(t.clone() for t in self.prog.state))
+            self.prog.owner = None
+        self.prog = None
 
-    def _candidates(self, img, h, w, point_detections, line_detections):
-        """Point and line candidates of this frame on the device: FAST and
-        the line detector when nothing is injected (the valid segments
-        compacted in order, as the host's ``uv4[valid]``), else the
-        injected rows or the sample grid, as ``Tracking._finish_selection``
-        takes them."""
-        tr, cfg, dev = self.tr, self.tr.cfg, self.tr.device
-        N_CAND, NL_CAND = tr.N_CAND, tr.NL_CAND
-        cand = torch.zeros((N_CAND, 2), dtype=torch.float32, device=dev)
-        cand_v = torch.zeros(N_CAND, dtype=torch.bool, device=dev)
-        if cfg.use_sample_fea == 0 and point_detections is None:
-            uv, _, va = fast_ops.detect_keypoints(img, tr._fast_cfg())
-            n = min(uv.shape[0], N_CAND)
-            cand[:n] = uv[:n]
-            cand_v[:n] = va[:n]
-        elif cfg.use_sample_fea == 0:
-            n = min(len(point_detections), N_CAND)
-            cand[:n] = self._push(point_detections[:n], np.float32)
-            cand_v[:n] = True
+    def _program(self, modes, inputs) -> ResidentProgram:
+        """The shared program of this frame's modes and input shapes (a
+        graph on the card), holding this driver's state; a driver that held
+        it keeps a copy of its own."""
+        tr = self.tr
+        prog = resident_program(
+            tr.cfg, tr.K, self.caps, tr.N_CAND, tr.NL_CAND,
+            tr._fast_cfg() if modes[0] else None,
+            tr._line_cfg() if modes[1] else None, modes, self.state, inputs,
+            tr.device)
+        if prog.owner is not self:
+            if prog.owner is not None:
+                prog.owner._leave_program()
+            for dst, src in zip(prog.state, self.state):
+                dst.copy_(src)
+            if self.prog is not None and self.prog.owner is self:
+                self.prog.owner = None
+            prog.owner, self.prog, self.state = self, prog, prog.state
+        return prog
+
+    def _frame_arrays(self, gray, depth_raw, flow, mask, gt_objs, f_id,
+                      point_detections, line_detections):
+        """This frame's host arrays for the program's input buffers, and
+        its modes (need_fast, need_lines, use_grid)."""
+        tr, cfg = self.tr, self.tr.cfg
+        if cfg.resident_compress_input:
+            # float16 depth/flow and uint8 mask: ~3 decimal digits, far
+            # below the sensor and flow noise; cast back on the device
+            planes = (np.asarray(depth_raw, np.float32).astype(np.float16),
+                      np.asarray(flow, np.float32).astype(np.float16),
+                      np.clip(np.asarray(mask), 0, 255).astype(np.uint8))
         else:
-            cand = fr.grid_sample_uv(h, w, n_points=N_CAND, device=dev)
-            cand_v = torch.ones(N_CAND, dtype=torch.bool, device=dev)
-        lcand = torch.zeros((NL_CAND, 4), dtype=torch.float32, device=dev)
-        lv = torch.zeros(NL_CAND, dtype=torch.bool, device=dev)
-        if line_detections is None and cfg.use_lines:
-            seg = line_ops.detect_lines(img, tr._line_cfg())
-            idx, lv = _first_k(seg.valid, NL_CAND)
-            lcand = seg.uv4[idx] * lv[:, None]
-        elif line_detections is not None and len(line_detections):
-            n = min(len(line_detections), NL_CAND)
-            lcand[:n] = self._push(line_detections[:n], np.float32)
-            lv[:n] = True
-        return cand, cand_v, lcand, lv
+            planes = (np.asarray(depth_raw, np.float32),
+                      np.asarray(flow, np.float32),
+                      np.asarray(mask, np.int32))
+        need_fast = cfg.use_sample_fea == 0 and point_detections is None
+        use_grid = cfg.use_sample_fea != 0
+        need_lines = line_detections is None and bool(cfg.use_lines)
+        n_cam, n_obj = n_hypotheses(cfg)
+        spec = aux_spec(self.caps, tr.N_CAND, tr.NL_CAND, n_cam, n_obj)
+        aux = np.zeros(sum(int(np.prod(s)) for _, s in spec), np.float32)
+        a = _unpack_aux(aux, spec)               # views into aux
+        a["gt_prev"][:] = gt_sem_table(self._prev_gt[0])
+        a["gt_cur"][:] = gt_sem_table(gt_objs)
+        with tr.host_draws():
+            a["u_cam"][:] = _np(tr._ransac_uniforms(f_id, 0, n_cam))
+            for k in range(tr.MAXO):
+                a["u_obj"][k] = _np(tr._ransac_uniforms(f_id, k + 1, n_obj))
+        if cfg.use_sample_fea == 0 and point_detections is not None:
+            n = min(len(point_detections), tr.N_CAND)
+            a["cand"][:n] = np.asarray(point_detections[:n], np.float32)
+            a["cand_v"][:n] = 1.0
+        if line_detections is not None and len(line_detections):
+            n = min(len(line_detections), tr.NL_CAND)
+            a["lcand"][:n] = np.asarray(line_detections[:n], np.float32)
+            a["lcand_v"][:n] = 1.0
+        arrays = dict(img=np.asarray(gray), depth_raw=planes[0],
+                      flow=planes[1], mask=planes[2], aux=aux)
+        return arrays, (need_fast, need_lines, use_grid)
 
+    # -- per frame -----------------------------------------------------
     def track(self, gray, depth_raw, flow, mask, pose_gt, gt_objs, timing,
               f_id, n_images, stop_frame, line_detections=None,
               point_detections=None):
-        """One frame through the resident step; returns the most recently
-        drained camera pose (T_cw), ``LAG`` frames behind until the last
-        frame."""
-        tr, cfg = self.tr, self.tr.cfg
+        """One frame through the resident program; returns the most
+        recently drained camera pose (T_cw), ``LAG`` frames behind until
+        the last frame."""
+        tr = self.tr
         # the previous frame's window BA completes before this step: the
         # refined pose feeds this frame's solve
         if self._lba_trigger(f_id - 1):
@@ -1291,35 +1564,15 @@ class ResidentDriver:
             self._run_partial_ba(f_id - 1)
 
         t0 = time.perf_counter()
-        if cfg.resident_compress_input:
-            # float16 depth/flow and uint8 mask: ~3 decimal digits, far
-            # below the sensor and flow noise; cast back on the device
-            depth_d = self._push(np.asarray(depth_raw, np.float32)
-                                 .astype(np.float16))
-            flow_d = self._push(np.asarray(flow, np.float32)
-                                .astype(np.float16))
-            mask_d = self._push(np.clip(np.asarray(mask), 0, 255)
-                                .astype(np.uint8))
-        else:
-            depth_d = self._push(depth_raw, np.float32)
-            flow_d = self._push(flow, np.float32)
-            mask_d = self._push(mask, np.int32)
-        img = self._push(gray)
-        gt_prev = self._push(gt_sem_table(self._prev_gt[0]))
-        gt_cur = self._push(gt_sem_table(gt_objs))
-        n_cam, n_obj = n_hypotheses(cfg)
-        u_cam = tr._ransac_uniforms(f_id, 0, n_cam)
-        u_obj = torch.stack([tr._ransac_uniforms(f_id, k + 1, n_obj)
-                             for k in range(tr.MAXO)])
-        h, w = mask_d.shape
+        arrays, modes = self._frame_arrays(gray, depth_raw, flow, mask,
+                                           gt_objs, f_id, point_detections,
+                                           line_detections)
+        prog = self._program(modes, {k: (a.shape, _torch_dtype(a))
+                                     for k, a in arrays.items()})
+        prog.load(arrays)
         with torch.profiler.record_function("resident_step"):
-            cand = self._candidates(img, h, w, point_detections,
-                                    line_detections)
-            self.state, out, syncs = self.step(
-                self.state, depth_d, flow_d, mask_d, *cand, gt_prev, gt_cur,
-                u_cam, u_obj)
-        tr.lm_host_syncs += syncs
-        host, ready = to_host_async(out)
+            tr.lm_host_syncs += prog()
+        host, ready = to_host_async(prog.out)
         timing[1] = (time.perf_counter() - t0) * 1e3
         self.pending.append(dict(
             f_id=f_id, host=host, ready=ready, pose_gt=pose_gt,
@@ -1368,9 +1621,13 @@ class ResidentDriver:
             tr.cfg.window_size, frame=f_id))
         self._ba_frame = f_id
         pose_np = np.linalg.inv(tr.map.camera_poses[-1]).astype(np.float32)
-        self.state = self.state._replace(
-            pose=torch.as_tensor(pose_np, device=tr.device))
+        self._set_pose(pose_np)
         self._last_pose = pose_np
+
+    def _set_pose(self, pose_np):
+        """The refined pose into the state, in place: a captured graph
+        reads the state buffers."""
+        self.state.pose.copy_(torch.from_numpy(pose_np))
 
     def _drain_one(self):
         p = self.pending.popleft()

@@ -261,6 +261,7 @@ class Tracking:
         # ms, LM and CG iterations, host reads (batch_ba.run_ba's counters)
         self.ba_runs: List[dict] = []
         self._res: Optional[ResidentDriver] = None       # device loops
+        self._host_draws = False                         # see host_draws
         # the pipelined host path: the frame in flight, its deferred map
         # push, and the next frame's predispatched detectors
         self._inflight: Optional[dict] = None
@@ -308,10 +309,21 @@ class Tracking:
         gen = torch.Generator()
         gen.manual_seed(int(f_id) * 100003 + int(lane))
         u = torch.rand((n_hyp, 3), generator=gen)
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and not self._host_draws:
             # from pinned memory: no blocking copy, no host synchronisation
             return u.pin_memory().to(self.device, non_blocking=True)
         return u
+
+    @contextlib.contextmanager
+    def host_draws(self):
+        """Inside the block :meth:`_ransac_uniforms` leaves its draws on
+        the host: the resident driver packs them with the frame's other
+        small inputs into one copy."""
+        self._host_draws = True
+        try:
+            yield
+        finally:
+            self._host_draws = False
 
     def _fast_cfg(self):
         cfg = self.cfg

@@ -41,9 +41,11 @@ def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None
 def to_host_async(t: torch.Tensor):
     """Start ``t``'s copy home: on the card a non-blocking copy into pinned
     memory and a CUDA event recorded after it on the current stream; on
-    the CPU ``t`` itself and no event.  :func:`host_array` waits for it."""
+    the CPU a copy and no event.  Either way the copy is taken before any
+    later work on the stream can overwrite ``t`` (a static buffer that
+    the next frame rewrites).  :func:`host_array` waits for it."""
     if not t.is_cuda:
-        return t, None
+        return t.clone(), None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
     host.copy_(t, non_blocking=True)
     ready = torch.cuda.Event()

@@ -2,8 +2,9 @@
 version, the tracking slice on the card against the same slice on the
 CPU, the window BA on the card run twice, the line detector on the card
 against the CPU, frames from disk with nothing injected, the resident loop
-against the host path, the pipelined and chained paths on the card, and
-the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
+against the host path, the resident loop's captured graph against its
+eager step and without a synchronising call, the pipelined and chained
+paths on the card, and the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -316,3 +317,95 @@ def test_disk_frames_on_card_match_cpu(cuda, seq, tmp_path):
         np.testing.assert_allclose(a, b, atol=1e-4)
     for a, b in zip(maps["cuda"].line_valid, maps["cpu"].line_valid):
         assert a.sum() > 0 and abs(int(a.sum()) - int(b.sum())) <= 2
+
+
+def _graph_against_eager(monkeypatch, log):
+    """Wrap ``ResidentProgram.__call__``: before each graph launch an
+    eager twin (the plain version) runs the same frame from the same state
+    buffers and inputs; ``log`` gets whether state and output agree bit
+    for bit, and which state fields do not."""
+    from sdpl_slam_torch.models import resident as res
+
+    call, twins = res.ResidentProgram.__call__, {}
+
+    def both(prog):
+        if not prog.graph:
+            return call(prog)
+        twin = twins.setdefault(id(prog), prog.eager_twin())
+        for dst, src in zip(twin.state, prog.state):
+            dst.copy_(src)
+        for k, t in prog.inp.items():
+            twin.inp[k].copy_(t)
+        twin()
+        syncs = call(prog)
+        bad = [name for name, a, b in zip(res.ResidentState._fields,
+                                          twin.state, prog.state)
+               if not torch.equal(a, b)]
+        log.append((bad, torch.equal(twin.out, prog.out)))
+        return syncs
+
+    monkeypatch.setattr(res.ResidentProgram, "__call__", both)
+
+
+@pytest.mark.gpu
+def test_resident_graph_matches_eager_step(cuda, monkeypatch):
+    """Six 640x192 resident frames (FAST and the line detector in the
+    step): the captured graph's state and output buffers equal the eager
+    step's bit for bit on every frame, from the same state; the graph
+    reads nothing on the host and launches FAST once a frame, counted per
+    replay."""
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    sq = SynthSequence(SynthConfig(n_frames=8, n_objects=2, noise_flow=0.1))
+    settings = slice_settings(sq.cfg)
+    settings.resident_tracking = True
+    s = System(settings, verbose=False)
+    log = []
+    _graph_against_eager(monkeypatch, log)
+    before = tf.fast_score_pyramid.launches
+    n = sq.n_frames - 1
+    for t in range(n):
+        f = sq.frame(t)
+        s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
+                     t * 0.1, n)
+    assert len(log) == n - 1 == 6
+    assert all(bad == [] and same_out for bad, same_out in log), log
+    assert s.tracker.lm_host_syncs == 0
+    # frame 0 on the host path, then one a frame from the graph and one
+    # from each eager twin
+    assert tf.fast_score_pyramid.launches - before == n + len(log)
+
+
+@pytest.mark.gpu
+def test_resident_graph_frame_makes_no_sync(cuda):
+    """A steady resident frame on the card calls no synchronising
+    operation (``torch.cuda.set_sync_debug_mode("warn")``): its inputs go
+    out through pinned memory, the graph ends both LMs on the device and
+    the output comes home behind the stream."""
+    import warnings
+
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    sq = SynthSequence(SynthConfig(n_frames=6, n_objects=2, noise_flow=0.1))
+    settings = slice_settings(sq.cfg)
+    settings.resident_tracking = True
+    s = System(settings, verbose=False)
+    n = sq.n_frames - 1
+    for t in range(n):
+        f = sq.frame(t)
+        args = (f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
+                t * 0.1, n)
+        if t != 3:
+            s.track_rgbd(*args)
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                s.track_rgbd(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert hits == []
+    assert s.tracker.lm_host_syncs == 0

@@ -202,6 +202,71 @@ def test_resident_system_with_local_ba(n_frames):
             np.testing.assert_allclose(x, y, atol=5e-3, rtol=1e-3)
 
 
+def test_window_ba_pose_written_into_the_buffers(monkeypatch):
+    """The driver runs over the static buffers of a ``ResidentProgram``
+    (the plumbing the card's captured graph reads): the state buffers keep
+    their addresses from frame to frame, the window BA at frame 3 writes
+    its refined pose into them in place before frame 4's step, and the map
+    is the one test_resident_system_with_local_ba holds to the host path."""
+    seen = []
+    call = res.ResidentProgram.__call__
+
+    def spy(prog):
+        drv = prog.owner
+        seen.append(([t.data_ptr() for t in prog.state] + [prog.out.data_ptr()],
+                     prog.state.pose.clone(), len(drv.tr.map.camera_poses),
+                     np.asarray(drv.tr.map.camera_poses[-1]).copy()))
+        assert drv.state is prog.state
+        return call(prog)
+
+    monkeypatch.setattr(res.ResidentProgram, "__call__", spy)
+    over = dict(ba_gain_threshold_partial=1e-12)
+    resident = _run_system(True, local_ba=True, n_frames=6, **over)
+    monkeypatch.undo()
+    assert [r["frame"] for r in resident.tracker.ba_runs] == [3]
+    assert len(seen) == 4                      # frames 1-4 in the step
+    assert all(s[0] == seen[0][0] for s in seen)
+    ptrs, pose, n_map, last = seen[3]          # frame 4, after the window
+    assert n_map == 4
+    np.testing.assert_array_equal(
+        pose.numpy(), np.linalg.inv(last).astype(np.float32))
+    host = _run_system(False, local_ba=True, n_frames=6, **over)
+    _maps_close(host.map, resident.map)
+
+
+def test_drivers_sharing_a_program_keep_their_states():
+    """Two resident systems on the same frames, interleaved, over their one
+    shared program (identically configured drivers share it, as they share
+    the card's captured graph): each frame a driver takes the buffers from
+    the other, which keeps a copy of its state, and both maps equal a run
+    alone bit for bit; an exit and re-entry in the middle changes nothing
+    either."""
+    ref = _run_system(True).map
+    cfg = SynthConfig(n_frames=6, n_objects=2, noise_flow=0.1)
+    seq = SynthSequence(cfg)
+    settings = synth_settings(cfg)
+    settings.resident_tracking = True
+    settings.run_local_ba = False
+    systems = [System(settings, verbose=False, device="cpu")
+               for _ in range(2)]
+    for t in range(5):
+        f = seq.frame(t)
+        for sys_ in systems:
+            sys_.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                            f.obj_rows, t * 0.1, 5, line_detections=f.lines)
+        if t == 2:
+            systems[0].tracker.sync_host_state()        # exit
+            assert systems[0].tracker._res is None
+    progs = [s.tracker._res.prog for s in systems]
+    assert progs[0] is None and progs[1].owner is systems[1].tracker._res
+    assert systems[0].tracker._res.state is not progs[1].state
+    for sys_ in systems:
+        m = sys_.map
+        _maps_close(ref, m)
+        for x, y in zip(ref.camera_poses, m.camera_poses):
+            np.testing.assert_array_equal(x, y)
+
+
 def test_resident_system_with_global_ba():
     """The global BA at the stop frame: the resident driver drains, writes
     its state back and runs it, as the host path does at that frame."""
