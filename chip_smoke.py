@@ -30,8 +30,10 @@
    global BA ran, the 7 result files parse, camera RPE of the primary and
    refined poses under the GT gates, static lines tracked in the steady
    frames, and the first frames agree with the same files run on the
-   CPU.  The second window is replayed from a copy of the system under
-   torch.profiler to count its kernel launches and device time.
+   CPU.  Every window and global BA runs as one launch of its captured
+   program with one host read (at most three captures in the phase); the
+   first window is replayed warm, the second under torch.profiler to
+   count its launches and device time.
 5. Resident phase: the first 20 of the same files tracked again with
    ``resident_tracking = True`` (the whole frame on the card against device
    state, FAST and the line detector inside the step, the map stream two
@@ -81,12 +83,19 @@
 10. Non-joint phase: 6 frames with ``use_joint_optimization = False``
    (the pose-only camera solver), lines injected.
 11. BA phase: the final map with its camera poses perturbed, one window BA
-   (20 frames) by the CG step and by the dense-Schur step, each twice on
-   the card (the second under torch.profiler) and once on the CPU: each
-   step's two card runs must be identical (its scatter-adds sum in a fixed
-   order), card and CPU must agree on the final cost and the window poses
-   (tolerances below), and the Schur step's cost may be at most 1.05 times
-   the CG step's.
+   (20 frames) by the CG step and by the dense-Schur step.  Each step's
+   padded window graph runs on the card through its captured program
+   (``run_ba_fused`` / ``run_ba_fused_schur``: one graph launch, the LM
+   loop a WHILE node, for CG the CG loop a WHILE node nested in its body)
+   and through the eager plain version (``run_ba`` / ``run_ba_schur``), in
+   turns: state, cost and iterations bit for bit, one host read a graph
+   call; the capture's seconds and node counts, one graph call under
+   torch.profiler (host calls, device kernels) and the device's busy
+   share from CUDA events, peak memory.  Then ``partial_batch_optimization``
+   on the card and on the CPU in float64 to a fixed count of LM
+   iterations (gain 1e-12): final costs and window poses within the
+   tolerances below, both nearer the ground truth than the perturbed
+   start; the Schur step's final cost at most 1.05 times the CG step's.
 12. Descriptor phase: ORB for the selected keypoints (the FAST pyramid, one
    launch a frame, then the tracker's background and per-object caps) and
    LBD for the detected lines of the first disk-phase frames, on the card
@@ -144,13 +153,12 @@ LINE_MATCH_PX, LINE_MATCH_FRAC = 0.5, 0.8
 LINE_ALONG_FRAC, LINE_RECALL_MIN = 0.9, 0.6
 NONJOINT_T_GATE, NONJOINT_R_GATE = 0.02, 0.2   # tests/test_nonjoint_path.py
 BA_WINDOW = 20
-# BA phase: card vs CPU final cost.  The window's LM stops when a step
-# gains under 1e-3 of the cost (ba_gain_threshold_partial), and two sound
-# float32 runs part by rounding and stop some steps apart: the limit is 10
-# times that rule's resolution.  Measured 4.5e-3 on the map tracked from
-# disk (10 against 14 LM iterations; run to a gain of 1e-5 both reach
-# 9.1e-4), 7e-8 to 1.0e-4 on the exact-depth map of the earlier slice
-# (PERF.md)
+# BA phase: card vs CPU final cost.  Float32 window runs stopped by the
+# 1e-3 gain rule part by rounding and stop some steps apart (4.5e-3 and
+# 1.76e-2 on maps tracked from disk, ROADMAP C6), so the card and the CPU
+# are compared in float64 to a fixed count of LM iterations (gain 1e-12),
+# a stop that rounding does not move; the limit stays 10 times the gain
+# rule's resolution
 BA_COST_RTOL = 1e-2
 BA_POSE_ATOL = 1e-3    # BA phase: card vs CPU window poses (m, rotation)
 TIMING_REPS = 25       # wall: median of single calls
@@ -1122,7 +1130,8 @@ def _trace_summary(events, wall_ms, exclude=()):
     graphs = sum("GraphLaunch" in n for n in host)
     kernels = sum("LaunchKernel" in n for n in host)
     copies = sum(("Memcpy" in n or "Memset" in n) for n in host)
-    dev = [(name, us) for name, us in _device_events(events, exclude)
+    all_dev = _device_events(events, exclude)
+    dev = [(name, us) for name, us in all_dev
            if not name.startswith(("Memcpy", "Memset"))]
     busy = sum(us for _, us in dev) / 1e3
     # the device's own span: first kernel start to last kernel end
@@ -1136,6 +1145,7 @@ def _trace_summary(events, wall_ms, exclude=()):
              if not cuda and name == "aten::_local_scalar_dense"]
     return dict(host_calls=graphs + kernels + copies, graph_launches=graphs,
                 kernel_launches=kernels, copies=copies, kernels=len(dev),
+                device_copies=len(all_dev) - len(dev),
                 busy_ms=busy, wall_ms=wall_ms, span_ms=span,
                 idle=max(0.0, 1.0 - busy / wall_ms),
                 idle_span=max(0.0, 1.0 - busy / span) if span else 0.0,
@@ -1355,46 +1365,200 @@ def window_trace(replay, loaded):
     lo, hi = rng[0]
     dev = _device_events(events, ("local_ba", "frame"), lo, hi)
     kernels = [us for n, us in dev if not n.startswith(("Memcpy", "Memset"))]
+    graphs = sum(1 for cuda, name, t0, _ in events
+                 if not cuda and "GraphLaunch" in name and lo <= t0 <= hi)
     return dict(launch_calls=_launch_calls(events, lo, hi),
+                graph_launches=graphs,
                 kernels=len(kernels), copies=len(dev) - len(kernels),
                 busy_ms=sum(kernels) / 1e3, wall_ms=(hi - lo) / 1e3, run=run)
 
 
-def _traced(fn):
-    """``fn()`` under torch.profiler on the card: its result and its kernel
-    launches (runtime calls), device kernels, their summed time and the
-    wall time of the call."""
+def _memory(after):
+    """One line of the card's memory: this process's allocated and
+    reserved bytes, the BA programs it keeps, the card's free bytes."""
     import torch
+
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    free, total = torch.cuda.mem_get_info()
+    print("  memory after %s: %.1f MiB allocated, %.1f MiB reserved by this "
+          "process (%d BA programs kept); %.1f of %.1f GiB free on the card"
+          % (after, torch.cuda.memory_allocated() / 2 ** 20,
+             torch.cuda.memory_reserved() / 2 ** 20, len(bb._PROGRAMS),
+             free / 2 ** 30, total / 2 ** 30))
+
+
+def _print_ba_runs(runs, what, smi):
+    """One line a BA call (step, wall ms, LM and CG iterations, host reads,
+    programs captured); fails unless each call read the device once (one
+    graph launch, one read).  Returns the captures made."""
+    for r in runs:
+        print("  [%s] %s %s BA at frame %d by the %s step: %.1f ms, %d LM / "
+              "%d CG iterations, %d host reads, %d programs captured" % (
+                  smi, what, r["kind"], r["frame"], r["step"],
+                  r["ms"], r["iterations"], r["cg_iterations"],
+                  r["host_syncs"], r["captures"]))
+    if any(r["host_syncs"] != 1 for r in runs):
+        raise AssertionError("%s: a BA call read the device %s times (one "
+                             "fused launch, one read expected)" % (
+                                 what, [r["host_syncs"] for r in runs]))
+    return sum(r["captures"] for r in runs)
+
+
+MAX_DISK_CAPTURES = 3   # window 1, window 2 if its buckets rose, global BA
+
+
+def _last_program():
+    """The fused BA program of the last fused call."""
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    return next(reversed(bb._PROGRAMS.values()))
+
+
+def _nodes(counts):
+    """The node count of a program's nested segment counts."""
+    return sum(_nodes(c) if isinstance(c, list) else c for c in counts)
+
+
+def _ba_run(fn, counters):
+    """One BA call, synchronized on both sides: (result, wall ms, CUDA
+    events ms, peak device memory above what was held before, LM / CG
+    iterations and host reads it counted)."""
+    import torch
+
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    before = (counters.iterations, bb.run_ba.cg_iterations,
+              counters.host_syncs)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    ev[0].record()
+    out = fn()
+    ev[1].record()
+    torch.cuda.synchronize()
+    return dict(out=out, ms=(time.perf_counter() - t0) * 1e3,
+                ev_ms=ev[0].elapsed_time(ev[1]),
+                peak=torch.cuda.max_memory_allocated() - base, base=base,
+                reserved=torch.cuda.memory_reserved(),
+                iterations=counters.iterations - before[0],
+                cg=bb.run_ba.cg_iterations - before[1],
+                reads=counters.host_syncs - before[2])
+
+
+def _graph_against_eager(m, settings, K, f0, step):
+    """The perturbed window's padded graph on the card through the fused
+    program (``run_ba_fused`` / ``run_ba_fused_schur``) and through the
+    eager plain version (``run_ba`` / ``run_ba_schur``) at the window BA's
+    settings: the capture, then four calls in turns (eager, graph, graph,
+    eager), each graph call's state, cost and iterations bit for bit the
+    eager one's; one graph call under torch.profiler."""
+    import torch
+
+    from sdpl_slam_torch.solvers import ba_builder, schur_ba
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    g, meta = ba_builder.build_graph(
+        m, K, f0, m.n_frames, min_track_len=settings.ba_tracklet_min_len,
+        motion_init_identity=False, prior_info=1e7,
+        use_lines=settings.use_lines, device="cuda")
+    g = ba_builder.pad_graph(g, ba_builder.bucket_sizes(g))
+    F, M = int(g.cam_T0.shape[0]), int(g.mot_T0.shape[0])
+    w = ba_builder._weights_from_cfg(settings)
+    kw = dict(max_iters=settings.ba_local_iterations,
+              gain_threshold=settings.ba_gain_threshold_partial)
+    if step == "cg":
+        counters = bb.run_ba
+        kw["cg_iters"] = settings.ba_local_cg_iters
+        runs = {"eager": lambda: bb.run_ba(g, w, **kw),
+                "graph": lambda: bb.run_ba_fused(g, w, **kw)}
+    else:
+        counters = schur_ba.run_ba_schur
+        chains = [ba_builder._padded_chains(int(n), links, F, None, None)
+                  for n, links in ((g.Xd0.shape[0], meta["tern_prev"]),
+                                   (g.Ld_U0.shape[0], meta["ltern_prev"]))]
+        runs = {"eager": lambda: schur_ba.run_ba_schur(g, w, *chains, **kw),
+                "graph": lambda: schur_ba.run_ba_fused_schur(
+                    g, w, *chains, F, M, **kw)}
+    captures = bb.BAProgram.captures
+    first = _ba_run(runs["graph"], counters)
+    prog = _last_program()
+    if bb.BAProgram.captures != captures + 1:
+        raise AssertionError("BA phase: the %s program was not captured "
+                             "once" % step)
+    rows = [dict(_ba_run(runs[who], counters), who=who)
+            for who in ("eager", "graph", "graph", "eager")]
+    ref = rows[0]["out"]
+    bad = []
+    for r in rows[1:]:
+        st, cost, it = r["out"]
+        same = (float(cost) == float(ref[1]) and it == ref[2]
+                and r["cg"] == rows[0]["cg"]
+                and all(torch.equal(a, b) for a, b in zip(st, ref[0])))
+        if not same:
+            bad.append(r["who"])
+    graph_rows = [r for r in rows if r["who"] == "graph"]
+    if any(r["reads"] != 1 for r in graph_rows + [first]):
+        raise AssertionError("BA phase: a fused %s call read the device "
+                             "%s times" % (step, [r["reads"] for r in
+                                                  graph_rows]))
+    # the trace: the same program with a budget of one LM iteration (the
+    # budgets are inputs), short enough for the profiler to record every
+    # kernel; CUDA events around the same call, untraced, for the busy share
+    kw["max_iters"] = 1
+    ev = _ba_run(runs["graph"], counters)
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        out = fn()
+        runs["graph"]()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3
     events = _events(prof)
-    dev = [us for n, us in _device_events(events)
-           if not n.startswith(("Memcpy", "Memset"))]
-    return out, dict(launches=_launch_calls(events), kernels=len(dev),
-                     wall_ms=wall_ms, busy_ms=sum(dev) / 1e3)
+    tr = _trace_summary(events, wall)
+    nc = prog.node_counts
+    body = nc[1]
+    # node runs of one LM iteration: prologue, the LM body's segments,
+    # the CG body once a CG iteration, epilogue
+    runs_expected = (nc[0] + nc[-1]
+                     + sum(c for c in body if not isinstance(c, list))
+                     + ev["cg"] * sum(_nodes(c) for c in body
+                                      if isinstance(c, list)))
+    by_name = {}
+    for name, us in _device_events(events):
+        n, t = by_name.get(name, (0, 0.0))
+        by_name[name] = (n + 1, t + us)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    return dict(rows=rows, first=first, bad=bad, prog=prog, trace=tr,
+                busy=tr["busy_ms"] / ev["ev_ms"], ev=ev, top=top,
+                runs_expected=runs_expected,
+                sizes=(F, M, tuple(g.Xs0.shape), tuple(g.sp_cam.shape)))
 
 
-def ba_phase(cuda_map, settings):
+BA_CHECK_ITERS = 2     # BA phase, card against CPU: float64 LM iterations
+
+
+def ba_phase(cuda_map, settings, smi):
     """One window BA on a perturbed copy of the final map, by the CG step
-    and by the dense-Schur step (``ba_schur``), each twice on the card (the
-    second under torch.profiler) and once on the CPU: each step's card runs
-    identical, card and CPU final costs within BA_COST_RTOL and window
+    and by the dense-Schur step.  Per step: the padded window graph
+    through the captured program against the eager plain version on the
+    card, bit for bit and timed in turns (:func:`_graph_against_eager`);
+    then the entry point ``partial_batch_optimization`` on the card and on
+    the CPU in float64 to BA_CHECK_ITERS LM iterations at gain 1e-12 (a
+    well-posed stop: float32 runs stopped by the 1e-3 gain rule part by
+    rounding, ROADMAP C6): final costs within BA_COST_RTOL and window
     poses within BA_POSE_ATOL, both nearer the ground truth than the
-    perturbed start, and the Schur step's final cost at most 1.05 times the
-    CG step's (JAX's criterion, tests/test_schur_ba.py).  Returns, per
-    step, each run's figures."""
+    perturbed start; and the Schur step's final cost at most 1.05 times
+    the CG step's on the card (JAX's criterion, tests/test_schur_ba.py).
+    Returns, per step, its figures."""
     import copy
     import dataclasses
 
     import numpy as np
-    import torch
 
     from sdpl_slam_torch.ops.geometry import Intrinsics
     from sdpl_slam_torch.solvers import ba_builder, schur_ba
@@ -1411,78 +1575,101 @@ def ba_phase(cuda_map, settings):
     gt = m.camera_poses_gt[f0:]
     t_before, _ = metrics.camera_rpe(m.camera_poses[f0:], gt)
     K = Intrinsics.from_config(settings)
-    print("BA phase: window graph %s" % _window_sizes(m, settings, f0,
-                                                       m.n_frames))
-    rb, rs = bb.run_ba, schur_ba.run_ba_schur
+    print("BA phase: window graph %s; camera poses perturbed by 5 cm (RPE "
+          "%.5f m)" % (_window_sizes(m, settings, f0, m.n_frames), t_before))
     out = {}
     for step in ("cg", "schur"):
-        cfg = dataclasses.replace(settings, ba_schur=step == "schur")
-        out[step] = runs = {}
-        for run, dev in (("cuda", "cuda"), ("cuda again", "cuda"),
-                         ("cpu", "cpu")):
+        ge = _graph_against_eager(m, settings, K, f0, step)
+        prog, tr, first = ge["prog"], ge["trace"], ge["first"]
+        med = lambda who, key: sorted(  # noqa: E731
+            r[key] for r in ge["rows"] if r["who"] == who)[0]
+        eager = ge["rows"][0]
+        print("  [%s] %s step, padded window (%d frames, %d motions, static "
+              "points %s, their edges %s), window settings: LM %d / CG %d "
+              "iterations; graph against eager on the card: state, cost and "
+              "iterations %s; wall ms in turns (eager, graph, graph, eager) "
+              "%s, CUDA events ms %s; graph %.1fx faster; host reads a call "
+              "graph %d, eager %d; peak device memory above the %.1f MiB "
+              "held before: graph %.1f MiB, eager %.1f MiB, the capturing "
+              "call %.1f MiB" % (
+                  smi, step, ge["sizes"][0], ge["sizes"][1], ge["sizes"][2],
+                  ge["sizes"][3], eager["iterations"], eager["cg"],
+                  "bit-identical" if not ge["bad"] else
+                  "DIFFERENT in %s" % ge["bad"],
+                  [round(r["ms"], 2) for r in ge["rows"]],
+                  [round(r["ev_ms"], 2) for r in ge["rows"]],
+                  med("eager", "ms") / med("graph", "ms"),
+                  ge["rows"][1]["reads"], eager["reads"],
+                  eager["base"] / 2 ** 20, med("graph", "peak") / 2 ** 20,
+                  med("eager", "peak") / 2 ** 20, first["peak"] / 2 ** 20))
+        ev = ge["ev"]
+        print("  after the capturing call %.1f MiB reserved by this "
+              "process, after the four calls in turns %.1f MiB" % (
+                  first["reserved"] / 2 ** 20,
+                  ge["rows"][-1]["reserved"] / 2 ** 20))
+        print("  [%s] %s program: capture %.1f ms wall (warm-up %.2f s, "
+              "capture %.2f s, stitch %.2f s); captured nodes %d, nested "
+              "as %s (a list is a WHILE body); the program with a budget of "
+              "one LM iteration (%d CG iterations): CUDA events %.2f ms; "
+              "under torch.profiler %d host calls enqueueing device work (%d "
+              "graph launches, %d kernel launches, %d copies), %d device "
+              "kernels and %d copies (of %d node runs) summing %.2f ms of "
+              "kernels, so the device is busy %.1f %% of the call" % (
+                  smi, step, first["ms"], prog.warmup_s, prog.capture_s,
+                  prog.stitch_s, _nodes(prog.node_counts),
+                  _nest_summary(prog.node_counts), ev["cg"], ev["ev_ms"],
+                  tr["host_calls"], tr["graph_launches"],
+                  tr["kernel_launches"], tr["copies"], tr["kernels"],
+                  tr["device_copies"], ge["runs_expected"], tr["busy_ms"],
+                  100 * ge["busy"]))
+        print("    top kernels by device time in that call: %s" % "; ".join(
+            "%s x%d %.2f ms" % (_kernel_name(name), n, us / 1e3)
+            for name, (n, us) in ge["top"]))
+        if ge["bad"]:
+            raise AssertionError("BA phase: the %s program differs from the "
+                                 "eager plain version" % step)
+        nc = prog.node_counts
+        loops = [c for c in nc if isinstance(c, list)]
+        nested = [c for body in loops for c in body if isinstance(c, list)]
+        if len(loops) != 1 or len(nested) != (1 if step == "cg" else 0):
+            raise AssertionError("BA phase: the %s program's loops are %s"
+                                 % (step, _nest_summary(nc)))
+
+        cfg = dataclasses.replace(
+            settings, ba_schur=step == "schur", ba_dtype="float64",
+            ba_gain_threshold_partial=1e-12,
+            ba_local_iterations=BA_CHECK_ITERS)
+        runs = {}
+        for dev in ("cuda", "cpu"):
             mm = copy.deepcopy(m)
-            before = (rb.iterations + rs.iterations, rb.cg_iterations,
-                      rb.host_syncs + rs.host_syncs, rs.iterations)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            base = torch.cuda.memory_allocated()
-
-            def solve():
-                return ba_builder.partial_batch_optimization(
-                    mm, K, BA_WINDOW, cfg, use_lines=cfg.use_lines,
-                    device=dev)
-
-            t0 = time.perf_counter()
-            if run == "cuda again":
-                cost, trace = _traced(solve)
-            else:
-                cost, trace = solve(), None
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            runs[run] = dict(
-                cost=cost, ms=ms, trace=trace,
-                iterations=rb.iterations + rs.iterations - before[0],
-                cg_iterations=rb.cg_iterations - before[1],
-                host_syncs=rb.host_syncs + rs.host_syncs - before[2],
-                schur=rs.iterations > before[3],
-                peak=torch.cuda.max_memory_allocated() - base,
-                poses=np.stack(mm.camera_poses[f0:]),
-                rpe=metrics.camera_rpe(mm.camera_poses[f0:], gt)[0])
-        a, b, again = runs["cuda"], runs["cpu"], runs["cuda again"]
-        same = (a["cost"] == again["cost"] and
-                a["iterations"] == again["iterations"] and
-                a["cg_iterations"] == again["cg_iterations"] and
-                np.array_equal(a["poses"], again["poses"]))
+            counters = bb.run_ba if step == "cg" else schur_ba.run_ba_schur
+            r = _ba_run(lambda: ba_builder.partial_batch_optimization(
+                mm, K, BA_WINDOW, cfg, use_lines=cfg.use_lines, device=dev),
+                counters)
+            r.update(poses=np.stack(mm.camera_poses[f0:]),
+                     rpe=metrics.camera_rpe(mm.camera_poses[f0:], gt)[0])
+            runs[dev] = r
+        _memory("the %s step's float64 runs" % step)
+        a, b = runs["cuda"], runs["cpu"]
         pose_err = float(np.abs(a["poses"] - b["poses"]).max())
-        cost_err = abs(a["cost"] - b["cost"]) / max(abs(b["cost"]), 1e-20)
-        tr = again["trace"]
-        print("BA phase, %s step: window of %d frames, camera poses "
-              "perturbed by 5 cm (RPE %.5f m); card cost %.9g in %d LM / %d "
-              "CG iterations, %d host reads, %.1f ms (RPE %.6f m), BA peak "
-              "device memory %.1f MiB above the %.1f MiB held before; CPU "
-              "cost %.9g in %d LM / %d CG iterations, %.1f ms (RPE %.6f m); "
-              "cost rel diff %.3g (limit %g), window pose max diff %.3g "
-              "(limit %g); the card's second run %s the first, under "
-              "torch.profiler: %.1f ms wall, %d kernel launches (%.1f per "
-              "LM iteration), %d device kernels summing %.2f ms (device "
-              "busy %.1f %%)" % (
-                  step, BA_WINDOW, t_before, a["cost"], a["iterations"],
-                  a["cg_iterations"], a["host_syncs"], a["ms"], a["rpe"],
-                  a["peak"] / 2 ** 20, base / 2 ** 20, b["cost"],
-                  b["iterations"], b["cg_iterations"], b["ms"], b["rpe"],
-                  cost_err, BA_COST_RTOL, pose_err, BA_POSE_ATOL,
-                  "identical to" if same else "DIFFERENT from",
-                  tr["wall_ms"], tr["launches"],
-                  tr["launches"] / max(again["iterations"], 1),
-                  tr["kernels"], tr["busy_ms"],
-                  100 * tr["busy_ms"] / tr["wall_ms"]))
-        if any(r["schur"] != (step == "schur") for r in runs.values()):
-            raise AssertionError("BA phase: the %s step was not taken"
-                                 % step)
-        if not same:
-            raise AssertionError("BA phase: two card runs of the %s step on "
-                                 "the same input differ" % step)
-        if not (np.isfinite(a["cost"]) and cost_err <= BA_COST_RTOL):
+        cost_err = abs(a["out"] - b["out"]) / max(abs(b["out"]), 1e-20)
+        print("  [%s] %s step, partial_batch_optimization in float64 to %d "
+              "LM iterations (gain 1e-12): card cost %.12g in %d LM / %d CG "
+              "iterations, %d host reads, %.1f ms (RPE %.6f m; its capture "
+              "included; peak %.1f MiB allocated above the %.1f MiB held "
+              "before, %.1f MiB reserved after); CPU cost %.12g in %d LM / "
+              "%d CG iterations, %.1f ms (RPE %.6f m); cost rel diff %.3g "
+              "(limit %g), window pose max diff %.3g (limit %g)" % (
+                  smi, step, BA_CHECK_ITERS, a["out"], a["iterations"],
+                  a["cg"], a["reads"], a["ms"], a["rpe"], a["peak"] / 2 ** 20,
+                  a["base"] / 2 ** 20, a["reserved"] / 2 ** 20, b["out"],
+                  b["iterations"], b["cg"], b["ms"], b["rpe"], cost_err,
+                  BA_COST_RTOL, pose_err, BA_POSE_ATOL))
+        if a["iterations"] != BA_CHECK_ITERS or a["reads"] != 1:
+            raise AssertionError("BA phase: the %s step's float64 card run "
+                                 "ran %d LM iterations with %d reads"
+                                 % (step, a["iterations"], a["reads"]))
+        if not (np.isfinite(a["out"]) and cost_err <= BA_COST_RTOL):
             raise AssertionError("BA phase: card and CPU costs of the %s "
                                  "step differ" % step)
         if pose_err > BA_POSE_ATOL:
@@ -1491,13 +1678,30 @@ def ba_phase(cuda_map, settings):
         if not (a["rpe"] < t_before and b["rpe"] < t_before):
             raise AssertionError("BA phase: the %s step did not pull the "
                                  "perturbed poses back" % step)
-    ratio = out["schur"]["cuda"]["cost"] / out["cg"]["cuda"]["cost"]
-    print("BA phase: Schur final cost / CG final cost on the card %.6f "
-          "(limit 1.05)" % ratio)
+        out[step] = dict(ge=ge, check=runs)
+    ratio = (out["schur"]["ge"]["rows"][1]["out"][1]
+             / out["cg"]["ge"]["rows"][1]["out"][1])
+    print("BA phase: Schur final cost / CG final cost on the card (window "
+          "settings, float32) %.6f (limit 1.05)" % ratio)
     if not ratio <= 1.05:
         raise AssertionError("BA phase: the Schur step's final cost is %.4f "
                              "times the CG step's" % ratio)
     return out
+
+
+def _kernel_name(name):
+    """A kernel's name, short: PyTorch's element-wise kernels by their
+    functor."""
+    import re
+
+    name = re.sub(r"^void |at::native::|\(anonymous namespace\)::|"
+                  r"at::cuda::|c10::", "", name)
+    return name[:110]
+
+
+def _nest_summary(counts):
+    """A program's nested node counts, short: [segment, [body ...], ...]."""
+    return json.dumps(counts).replace(" ", "")
 
 
 def cpu_check(root, loaded, first, cuda_map):
@@ -1964,11 +2168,12 @@ def main():
               "the prefetch threads), median %.2f ms of the loop waiting "
               "for frames t..t+2" % (float(np.median(res["load_ms"])),
                                      float(np.median(res["wait_ms"][1:]))))
-        for r in res["ba_runs"]:
-            print("  %s BA at frame %d: %.1f ms, %d LM iterations, %d CG "
-                  "iterations, %d BA host reads" % (
-                      r["kind"], r["frame"], r["ms"], r["iterations"],
-                      r["cg_iterations"], r["host_syncs"]))
+        caps = _print_ba_runs(res["ba_runs"], "disk phase", smi)
+        _memory("the disk phase")
+        if caps > MAX_DISK_CAPTURES:
+            raise AssertionError("disk phase: %d BA programs captured "
+                                 "(at most %d expected)"
+                                 % (caps, MAX_DISK_CAPTURES))
         print("  FAST kernel launches %d (%d per frame), LM host syncs %d, "
               "peak device memory %.1f MiB" % (
                   res["launches"], res["launches"] // N_FRAMES, res["syncs"],
@@ -1976,22 +2181,23 @@ def main():
         warm = window_replay(res["replays"][LBA_FRAMES[0]], loaded,
                              LBA_FRAMES[0])
         first = res["ba_runs"][0]
-        print("  first window replayed (the BA path now warm): %.1f ms, %d "
-              "LM iterations, %d CG iterations, %d BA host reads (the run's "
-              "own: %d / %d / %d)" % (
-                  warm["ms"], warm["iterations"], warm["cg_iterations"],
-                  warm["host_syncs"], first["iterations"],
-                  first["cg_iterations"], first["host_syncs"]))
+        print("  [%s] first window replayed (its program now captured): "
+              "%.1f ms, %d LM iterations, %d CG iterations, %d BA host "
+              "reads, %d captures (the run's own: %.1f ms, %d / %d / %d, %d)"
+              % (smi, warm["ms"], warm["iterations"], warm["cg_iterations"],
+                 warm["host_syncs"], warm["captures"], first["ms"],
+                 first["iterations"], first["cg_iterations"],
+                 first["host_syncs"], first["captures"]))
         tr = window_trace(res["replays"][LBA_FRAMES[-1]], loaded)
         run = tr["run"]
-        print("  second window replayed under torch.profiler: %.1f ms wall, "
-              "%d LM / %d CG iterations, %d kernel launches (runtime "
-              "calls), %d device kernels summing %.2f ms (device busy %.1f "
-              "%% of the window), %d copies; %.1f launches per CG iteration"
-              % (tr["wall_ms"], run["iterations"], run["cg_iterations"],
-                 tr["launch_calls"], tr["kernels"], tr["busy_ms"],
-                 100 * tr["busy_ms"] / tr["wall_ms"], tr["copies"],
-                 tr["launch_calls"] / max(run["cg_iterations"], 1)))
+        print("  [%s] second window replayed under torch.profiler: %.1f ms "
+              "wall, %d LM / %d CG iterations, %d graph launches and %d "
+              "kernel launches (runtime calls), %d device kernels summing "
+              "%.2f ms (device busy %.1f %% of the traced window), %d copies"
+              % (smi, tr["wall_ms"], run["iterations"], run["cg_iterations"],
+                 tr["graph_launches"], tr["launch_calls"], tr["kernels"],
+                 tr["busy_ms"], 100 * tr["busy_ms"] / tr["wall_ms"],
+                 tr["copies"]))
         err = cpu_check(root, loaded, res["first"], res["system"].map)
         print("  reference check: the first %d frames of the same files on "
               "the CPU, max camera pose difference %g (limit %g)"
@@ -2075,10 +2281,8 @@ def main():
                   e["kernel_launches"], e["copies"], e["kernels"],
                   e["busy_ms"], e["wall_ms"], 100 * e["idle"], e["reads"],
                   e["read_ms"], t["reads"], t["read_ms"]))
-        for r in rs["ba_runs"]:
-            print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
-                  % (r["kind"], r["frame"], r["ms"], r["iterations"],
-                     r["cg_iterations"]))
+        _print_ba_runs(rs["ba_runs"], "resident phase", smi)
+        _memory("the resident phase")
 
         t0 = time.perf_counter()
         pp = pipelined_phase(root, loaded, res["system"].map,
@@ -2117,10 +2321,7 @@ def main():
         print("  LM host reads per frame %s; FAST launches %d (1 a frame); "
               "peak device memory %.1f MiB" % (
                   pp["reads"], pp["launches"], pp["peak"] / 2 ** 20))
-        for r in pp["ba_runs"]:
-            print("  %s BA at frame %d: %.1f ms, %d LM / %d CG iterations"
-                  % (r["kind"], r["frame"], r["ms"], r["iterations"],
-                     r["cg_iterations"]))
+        _print_ba_runs(pp["ba_runs"], "pipelined phase", smi)
 
         t0 = time.perf_counter()
         ch = chained_phase(root, loaded, res["system"].map,
@@ -2170,10 +2371,7 @@ def main():
                   rs["sync_calls"], rs["reads"][SYNC_FRAME],
                   c["sync_sites"], c["peak"] / 2 ** 20,
                   rs["peak"] / 2 ** 20))
-        for r in c["ba_runs"]:
-            print("  depth 2 %s BA at frame %d: %.1f ms, %d LM / %d CG "
-                  "iterations" % (r["kind"], r["frame"], r["ms"],
-                                  r["iterations"], r["cg_iterations"]))
+        _print_ba_runs(c["ba_runs"], "chained phase, depth 2", smi)
 
         t0 = time.perf_counter()
         kt = kitti_phase(seq, work)
@@ -2201,11 +2399,8 @@ def main():
               "launches %d (1 a frame)" % (
                   fm[len(fm) // 2], N_KITTI - 2, kt["launches"]))
         print("  window graph at frame %d: %s" % (N_KITTI - 1, kt["sizes"]))
-        for r in kt["ba_runs"]:
-            print("  %s BA at frame %d by the %s step: %.1f ms, %d LM "
-                  "iterations, %d host reads" % (
-                      r["kind"], r["frame"], r["step"], r["ms"],
-                      r["iterations"], r["host_syncs"]))
+        _print_ba_runs(kt["ba_runs"], "KITTI phase", smi)
+        _memory("the KITTI phase")
         print("  peak device memory over frame %d (its window and global "
               "Schur BAs included): %.1f MiB" % (N_KITTI - 1,
                                                  kt["ba_peak"] / 2 ** 20))
@@ -2262,7 +2457,15 @@ def main():
           "%.5f deg (gates %g m / %g deg)" % (
               N_NONJOINT, ms, n, t_err, r_err, NONJOINT_T_GATE,
               NONJOINT_R_GATE))
-    ba_phase(res["system"].map, res["system"].settings)
+    ba_phase(res["system"].map, res["system"].settings, smi)
+    _memory("the BA phase")
+    # the sharded phase starts processes of its own on the card: give back
+    # what the captured BA programs and the allocator's cache hold
+    from sdpl_slam_torch.solvers import batch_ba as bb
+
+    bb._PROGRAMS.clear()
+    torch.cuda.empty_cache()
+    _memory("dropping the BA programs and emptying the cache")
 
     t0 = time.perf_counter()
     sh = sharded_phase(res["system"].map, res["system"].settings)

@@ -1234,7 +1234,7 @@ class ResidentProgram:
             self.out.numel(), self.device, graph=False)
 
     def _capture(self):
-        from ..utils.cuda_graphs import GraphRecorder
+        from ..utils.cuda_graphs import GraphRecorder, loop_runner
 
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
@@ -1253,7 +1253,7 @@ class ResidentProgram:
         rec = GraphRecorder(counters=[(fast_ops.fast_score_pyramid,
                                        "launches")])
         with torch.cuda.stream(side):
-            with rec, fs.loop_runner(rec.loop):
+            with rec, loop_runner(rec.loop):
                 self._step()
         self._graph = rec.stitch()
         torch.cuda.synchronize(self.device)

@@ -856,10 +856,12 @@ class Tracking:
         """Run one batch BA entry point on the map; log it in ``ba_runs``
         (at ``frame``, by default the current one) and return its wall ms.
         The entry's step ("schur" or "cg") is read off the two LM loops'
-        counters.  The run is a ``<kind>_ba`` profiler range."""
+        counters; ``captures`` counts the fused programs it captured (on
+        the card, the first call of each bucket set).  The run is a
+        ``<kind>_ba`` profiler range."""
         rb, rs = bb.run_ba, schur_ba.run_ba_schur
         before = (rb.iterations, rb.cg_iterations, rb.host_syncs,
-                  rs.iterations, rs.host_syncs)
+                  rs.iterations, rs.host_syncs, bb.BAProgram.captures)
         t0 = time.perf_counter()
         with torch.profiler.record_function(kind + "_ba"):
             entry(self.map, self.K, *args, self.cfg,
@@ -871,7 +873,8 @@ class Tracking:
             step="schur" if schur_its else "cg",
             iterations=rb.iterations - before[0] + schur_its,
             cg_iterations=rb.cg_iterations - before[1],
-            host_syncs=rb.host_syncs - before[2] + rs.host_syncs - before[4]))
+            host_syncs=rb.host_syncs - before[2] + rs.host_syncs - before[4],
+            captures=bb.BAProgram.captures - before[5]))
         return ms
 
     # ------------------------------------------------------------------

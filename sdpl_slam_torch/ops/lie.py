@@ -109,7 +109,7 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     T = torch.zeros(xi.shape[:-1] + (4, 4), dtype=xi.dtype, device=xi.device)
     T[..., :3, :3] = so3_exp(w)
     T[..., :3, 3] = (_left_jacobian_v(w) @ v[..., None])[..., 0]
-    T[..., 3, 3] = 1.0
+    T[..., 3, 3].fill_(1.0)      # a fill: assigning a host float copies
     return T
 
 

@@ -24,9 +24,10 @@ fixed-shape :class:`LMState` with the device bool ``active_any`` (some
 lane still active), :func:`lm_iteration` updates it in place, and
 :func:`lm_finish` gates the outliers.  Run eagerly, the loop reads
 ``active_any`` on the host before every iteration (one host sync each,
-counted in ``FlowPoseResult.host_syncs``).  Under :func:`loop_runner` a
-caller takes the loop instead: ``models.resident`` captures the body into
-a CUDA graph and ends the loop on the device (a conditional WHILE node).
+counted in ``FlowPoseResult.host_syncs``).  Under a
+``utils.cuda_graphs.loop_runner`` a caller takes the loop instead:
+``models.resident`` captures the body into a CUDA graph and ends the loop
+on the device (a conditional WHILE node).
 
 The flow Jacobian of the line residual (``jax.jacfwd`` in JAX) is written
 in closed form: with c = p_h x q_h, n = sqrt(c.c + eps), l = c / n and
@@ -41,15 +42,14 @@ pose-only LM on fixed 3D structure, four gating rounds of a fixed
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
-from typing import Callable, NamedTuple
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ops import geometry, lie
 from ..ops.geometry import Intrinsics
+from ..utils.cuda_graphs import run_loop
 
 
 class PointBundle(NamedTuple):
@@ -260,24 +260,6 @@ def solve_pose_only(
         line_inlier=lvalid0 & active_l,
         final_cost=cost,
     )
-
-
-_LOOP_RUNNER: contextvars.ContextVar = contextvars.ContextVar(
-    "lm_loop_runner", default=None)
-
-
-@contextlib.contextmanager
-def loop_runner(run: Callable):
-    """Inside the block, :func:`solve_flow_pose` hands its LM loop to
-    ``run(body, flag)`` instead of looping on the host: ``body()`` is one
-    in-place :func:`lm_iteration` and ``flag`` the device bool that says
-    whether another iteration is due.  ``run`` must leave the state as
-    ``while flag: body()`` would."""
-    token = _LOOP_RUNNER.set(run)
-    try:
-        yield
-    finally:
-        _LOOP_RUNNER.reset(token)
 
 
 class _FlowPoseProblem:
@@ -512,10 +494,8 @@ def lm_iteration(s: LMState) -> None:
 
 def lm_run(s: LMState) -> LMState:
     """The loop: on the host (``while active_any``, one read an
-    iteration and one at the exit) unless a :func:`loop_runner` takes it."""
-    run = _LOOP_RUNNER.get()
-    if run is not None:
-        run(lambda: lm_iteration(s), s.active_any)
+    iteration and one at the exit) unless a ``loop_runner`` takes it."""
+    if run_loop(lambda: lm_iteration(s), s.active_any):
         return s
     while True:
         s.host_syncs += 1

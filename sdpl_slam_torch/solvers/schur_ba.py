@@ -21,8 +21,10 @@ CG over all edges.  For window-scale graphs the reduced system is small,
 
 One LM iteration is one linearization, the scatter assembly, the family
 solves and products, and one (NDOF, NDOF) Cholesky: no CG loop.
-:func:`run_ba_schur` is the JAX ``run_ba_fused_schur`` LM loop with
-:func:`batch_ba.run_ba`'s one host read per iteration.
+:func:`run_ba_fused_schur` is JAX's ``run_ba_fused_schur``: on the card
+one captured program whose LM loop ends on the device;
+:func:`run_ba_schur`, its plain version, runs the same LM iteration
+(``batch_ba.lm_iteration``) from the host with one read an iteration.
 
 Where the JAX module relies on XLA, this one says so explicitly:
 
@@ -34,12 +36,13 @@ Where the JAX module relies on XLA, this one says so explicitly:
   finite.  ``cholesky_ex`` reports the failure in ``info`` and may return
   a finite partial factor, so the fallback fires on ``info != 0`` or a
   non-finite solution, chosen on the device with ``torch.where`` (both
-  solves run; no host read);
+  solves run; no host read; the LU in float64, :func:`_solve_reduced`);
 * the inverses are ``inv_ex`` / ``solve_ex`` (no error check, so no host
   synchronisation), with JAX's ``1e-10 * I`` and ``1e-8 * I``.
 
-Graphs are built at exact counts (``ba_builder``), so a family may have no
-vertex, and the chain matrices are exact (no ``_bucket`` padding).
+``ba_builder`` pads graphs and chain tables to JAX's buckets; a padded
+vertex has no edge and forms a chain of its own, a padded chain row is
+all -1.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ class SchurMeta(NamedTuple):
     ``xd_chain``: (NC, K) int64 vertex ids forming each block-tridiagonal
     chain (consecutive ids by construction of ``build_graph``), -1 padded;
     every vertex of the family in one row (:func:`chains_from_links` over
-    the family's count; :func:`run_ba_schur` checks it).  ``ld_chain``: the
+    the family's count; :func:`_meta` checks it).  ``ld_chain``: the
     same for the dynamic line vertices."""
 
     xd_chain: torch.Tensor
@@ -208,13 +211,26 @@ def _solve_reduced(S, rhs):
     indefinite, and then the general LU solve is taken: where
     ``cholesky_ex`` reports a failure (``info != 0``; its partial factor
     can be finite) or its solution is not finite.  Both solves run and the
-    choice is made on the device."""
+    choice is made on the device.
+
+    Both are written with routines that a CUDA graph can hold inside a
+    WHILE body (the captured LM loop, ``batch_ba.BAProgram``): the
+    factorisations and triangular solves, not cuSOLVER's ``potrs`` /
+    ``getrs``, and the LU in float64, because cuSOLVER's float32 ``getrf``
+    above 512 unknowns and both ``*trs`` allocate memory inside a capture
+    (graph memory nodes, which no conditional body may hold).  The float64
+    LU is also the more exact of the two fallbacks."""
     S_d = 0.5 * (S + S.T) + 1e-8 * _eye(S.shape[0], S)
     L, info = torch.linalg.cholesky_ex(S_d)
-    d_chol = torch.cholesky_solve(rhs[:, None], L)[:, 0]
-    d_lu = torch.linalg.solve_ex(S_d, rhs)[0]
+    y = torch.linalg.solve_triangular(L, rhs[:, None], upper=False)
+    d_chol = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
+    LU, piv, _ = torch.linalg.lu_factor_ex(S_d.double())
+    P, Lu, U = torch.lu_unpack(LU, piv)
+    y = torch.linalg.solve_triangular(Lu, P.mT @ rhs.double()[:, None],
+                                      upper=False, unitriangular=True)
+    d_lu = torch.linalg.solve_triangular(U, y, upper=True)[:, 0]
     chol_ok = (info == 0) & torch.isfinite(d_chol).all()
-    return torch.where(chol_ok, d_chol, d_lu)
+    return torch.where(chol_ok, d_chol, d_lu.to(S.dtype))
 
 
 def dense_schur_step(graph: bb.BAGraph, state: bb.BAState, w: bb.BAWeights,
@@ -316,15 +332,11 @@ def dense_schur_step(graph: bb.BAGraph, state: bb.BAState, w: bb.BAWeights,
     return delta, cost, gain_den
 
 
-def run_ba_schur(graph: bb.BAGraph, w: bb.BAWeights, xd_chain, ld_chain,
-                 max_iters: int = 20, gain_threshold: float = 1e-4):
-    """The LM loop of JAX's ``run_ba_fused_schur`` with the exact step:
-    the damping and gain control of ``batch_ba.run_ba``, one host read per
-    LM iteration.  ``xd_chain`` / ``ld_chain``: :func:`chains_from_links`
-    of the dynamic point and line families.
-
-    Returns (final BAState, final cost (device scalar), iterations run)."""
-    dt, dev = graph.cam_T0.dtype, graph.cam_T0.device
+def _meta(graph: bb.BAGraph, xd_chain, ld_chain) -> SchurMeta:
+    """The chain tables checked (every vertex of each dynamic family in
+    one row once: a padded graph's padded vertices in chains of their
+    own, padded rows all -1) and on the graph's device."""
+    dev = graph.cam_T0.device
     chains = []
     for ch, n in ((xd_chain, graph.Xd0.shape[0]), (ld_chain,
                                                    graph.Ld_U0.shape[0])):
@@ -333,36 +345,59 @@ def run_ba_schur(graph: bb.BAGraph, w: bb.BAWeights, xd_chain, ld_chain,
             raise ValueError("the chains must hold each of the family's %d "
                              "vertices once" % n)
         chains.append(torch.as_tensor(ch, device=dev))
-    meta = SchurMeta(xd_chain=chains[0], ld_chain=chains[1],
+    return SchurMeta(xd_chain=chains[0], ld_chain=chains[1],
                      n_frames=int(graph.cam_T0.shape[0]),
                      n_motions=int(graph.mot_T0.shape[0]))
-    state = bb.initial_state(graph)
-    cost = bb._cost_only(graph, state, w)
-    lam = torch.tensor(1e-5, dtype=dt, device=dev)
-    nu = torch.tensor(2.0, dtype=dt, device=dev)
-    it = 0
-    while it < max_iters:
+
+
+def _schur_step(graph: bb.BAGraph, w: bb.BAWeights, meta: SchurMeta):
+    """The Schur step as ``batch_ba.LMLoop`` takes it."""
+    def step(state, lam):
         x, _, gain_den = dense_schur_step(graph, state, w, lam, meta)
-        new_state = bb._retract(state, x)
-        new_cost = bb._cost_only(graph, new_state, w)
-        rho = (cost - new_cost) / torch.clamp(gain_den, min=1e-20)
-        ok = torch.isfinite(new_cost) & (rho > 0)
-        gain = (cost - new_cost) / torch.clamp(cost, min=1e-20)
-        state = bb.BAState(*(torch.where(ok, b, a)
-                             for a, b in zip(state, new_state)))
-        cost = torch.where(ok, new_cost, cost)
-        lam = torch.where(
-            ok, lam * torch.clamp(1.0 - (2.0 * rho - 1.0) ** 3, min=1.0 / 3.0),
-            lam * nu)
-        nu = torch.where(ok, 2.0, nu * 2.0)
-        done = (ok & (gain < gain_threshold)) | (lam > 1e12)
-        it += 1
-        run_ba_schur.host_syncs += 1
-        run_ba_schur.iterations += 1
-        if bool(done):               # the one read of the iteration
-            break
-    return state, cost, it
+        return x, gain_den, None
+    return step
+
+
+def run_ba_schur(graph: bb.BAGraph, w: bb.BAWeights, xd_chain, ld_chain,
+                 max_iters: int = 20, gain_threshold: float = 1e-4):
+    """The LM loop of JAX's ``run_ba_fused_schur`` with the exact step, run
+    eagerly: the plain version of :func:`run_ba_fused_schur`, the same
+    ``batch_ba.lm_iteration`` driven from the host, one read a LM
+    iteration.  ``xd_chain`` / ``ld_chain``: :func:`chains_from_links` of
+    the dynamic point and line families.
+
+    Returns (final BAState, final cost (device scalar), iterations run)."""
+    meta = _meta(graph, xd_chain, ld_chain)
+    s = bb.LMLoop(graph, w, _schur_step(graph, w, meta), max_iters,
+                  gain_threshold)
+    it = bb.lm_run(s, run_ba_schur)
+    return s.state, s.cost, it
 
 
 run_ba_schur.host_syncs = 0      # host reads: one per LM iteration
 run_ba_schur.iterations = 0      # LM iterations
+
+
+def run_ba_fused_schur(graph: bb.BAGraph, w: bb.BAWeights, xd_chain,
+                       ld_chain, F: int, M: int, max_iters: int = 20,
+                       gain_threshold: float = 1e-4):
+    """The LM loop with the dense-Schur step as one program (JAX's
+    ``run_ba_fused_schur``): on the card one launch of a captured graph
+    whose LM loop ends on the device in a WHILE node (the block-Thomas
+    loop over chain positions is static in F, so it captures as straight
+    code).  ``F`` / ``M``: the graph's frame and (padded) motion counts.
+    Counts one host read and the LM iterations on ``run_ba_schur``.
+
+    Returns (final BAState, final cost (float), LM iterations run)."""
+    if (F, M) != (graph.cam_T0.shape[0], graph.mot_T0.shape[0]):
+        raise ValueError("F, M = %d, %d do not match the graph's %s, %s" % (
+            F, M, graph.cam_T0.shape[0], graph.mot_T0.shape[0]))
+    meta = _meta(graph, xd_chain, ld_chain)
+
+    def make_step(g, extras, cg_iters):
+        return _schur_step(g, w, meta._replace(xd_chain=extras[0],
+                                               ld_chain=extras[1]))
+
+    return bb.fused_call("schur", graph, w, make_step,
+                         (meta.xd_chain, meta.ld_chain), max_iters, 0,
+                         gain_threshold, run_ba_schur)

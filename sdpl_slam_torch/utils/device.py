@@ -1,9 +1,11 @@
 """The one rule for devices in this package: the card unless the caller
 asks for the CPU, and no silent fallback from the card to the CPU; the
-scatter-add that sums in one order on either; and the copy home that does
-not wait for the card."""
+scatter-add that sums in one order on either; the dense solves' library
+on the card; and the copy home that does not wait for the card."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -36,6 +38,26 @@ def scatter_add(dst: torch.Tensor, idx: torch.Tensor, src: torch.Tensor) -> None
         dst.index_add_(0, idx, src)
     finally:
         torch.use_deterministic_algorithms(False)
+
+
+@contextlib.contextmanager
+def cusolver_linalg(device: torch.device):
+    """On the card, route ``torch.linalg``'s factorisations and solves to
+    cuSOLVER / cuBLAS inside the block.  PyTorch's own heuristics send
+    some shapes to MAGMA (a batch of small systems with 256 to 1024
+    right-hand sides: the BA's Schur step), whose calls synchronise with
+    the host and so cannot be captured into a CUDA graph; the eager plain
+    version takes the same routes, so the two stay bit for bit equal.  A
+    no-op on the CPU."""
+    if device.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
 
 
 def to_host_async(t: torch.Tensor):

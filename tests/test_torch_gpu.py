@@ -409,3 +409,110 @@ def test_resident_graph_frame_makes_no_sync(cuda):
     hits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
     assert hits == []
     assert s.tracker.lm_host_syncs == 0
+
+
+def _tracked_window(seq):
+    """The 3 tracked frames' window graph, padded as ``ba_builder`` pads
+    it, on the card, with its padded chain tables."""
+    from sdpl_slam_torch.ops.geometry import Intrinsics
+    from sdpl_slam_torch.solvers import ba_builder
+
+    s = System(slice_settings(seq.cfg), verbose=False, device="cuda")
+    for t in range(3):
+        f = seq.frame(t)
+        s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose, f.obj_rows,
+                     t * 0.1, 3, line_detections=f.lines)
+    g, meta = ba_builder.build_graph(
+        s.map, Intrinsics.from_config(s.settings), 0, 3,
+        motion_init_identity=False, prior_info=1e7, device="cuda")
+    g = ba_builder.pad_graph(g, ba_builder.bucket_sizes(g))
+    chains = [ba_builder._padded_chains(int(n), links, 3, None, None)
+              for n, links in ((g.Xd0.shape[0], meta["tern_prev"]),
+                               (g.Ld_U0.shape[0], meta["ltern_prev"]))]
+    return g, chains
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("step", ["cg", "schur"])
+def test_fused_ba_graph_matches_eager(cuda, seq, step):
+    """The fused BA call (one launch of the captured program, the LM loop
+    and for CG the CG loop nested in it as WHILE nodes) against the eager
+    plain version on the same padded window on the card: state, cost, LM
+    and CG iterations bit for bit; one host read a fused call; a second
+    call of the same shapes makes no new capture."""
+    from sdpl_slam_torch.solvers import batch_ba as bb
+    from sdpl_slam_torch.solvers import schur_ba
+
+    g, chains = _tracked_window(seq)
+    w = bb.BAWeights()
+    kw = dict(max_iters=20, gain_threshold=1e-3)
+    counters = bb.run_ba if step == "cg" else schur_ba.run_ba_schur
+    if step == "cg":
+        es, ec, eit = bb.run_ba(g, w, **kw)
+        fused = lambda: bb.run_ba_fused(g, w, **kw)  # noqa: E731
+    else:
+        es, ec, eit = schur_ba.run_ba_schur(g, w, *chains, **kw)
+        fused = lambda: schur_ba.run_ba_fused_schur(  # noqa: E731
+            g, w, *chains, 3, int(g.mot_T0.shape[0]), **kw)
+    cg0 = bb.run_ba.cg_iterations
+    fused()                                   # the first call captures
+    eager_cg = bb.run_ba.cg_iterations - cg0
+    for _ in range(2):
+        before = (counters.host_syncs, bb.BAProgram.captures,
+                  bb.run_ba.cg_iterations)
+        fs, fc, fit = fused()
+        assert counters.host_syncs - before[0] == 1
+        assert bb.BAProgram.captures == before[1]
+        assert bb.run_ba.cg_iterations - before[2] == eager_cg
+        assert fit == eit > 0 and fc == float(ec)
+        for a, b in zip(fs, es):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_graph_recorder_nests_while_loops(cuda):
+    """A counted loop inside a counted loop, captured by ``GraphRecorder``
+    and stitched: the inner WHILE node sits in the outer one's body; one
+    launch runs 4 outer iterations of 5 inner each, and a second launch
+    the same again."""
+    from sdpl_slam_torch.utils.cuda_graphs import (GraphRecorder,
+                                                   loop_runner, run_loop)
+
+    outer = torch.zeros((), dtype=torch.int32, device=cuda)
+    total = torch.zeros((), dtype=torch.int32, device=cuda)
+    o_flag = torch.ones((), dtype=torch.bool, device=cuda)
+    keep = []
+
+    def fn():
+        outer.zero_()
+        total.zero_()
+        o_flag.fill_(True)
+
+        def outer_body():
+            inner = torch.zeros((), dtype=torch.int32, device=cuda)
+            i_flag = torch.ones((), dtype=torch.bool, device=cuda)
+            keep.extend((inner, i_flag))
+
+            def inner_body():
+                inner.add_(1)
+                total.add_(1)
+                i_flag.copy_(inner < 5)
+
+            assert run_loop(inner_body, i_flag)
+            outer.add_(1)
+            o_flag.copy_(outer < 4)
+
+        assert run_loop(outer_body, o_flag)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    rec = GraphRecorder()
+    with torch.cuda.stream(side):
+        with rec, loop_runner(rec.loop):
+            fn()
+    graph = rec.stitch()
+    assert [type(x) for x in graph.node_counts()] == [int, list, int]
+    for _ in range(2):
+        graph.launch()
+        torch.cuda.synchronize()
+        assert (int(outer), int(total)) == (4, 20)

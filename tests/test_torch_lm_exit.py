@@ -22,6 +22,7 @@ from sdpl_slam_tpu.solvers import frame_solvers as jfs
 from sdpl_slam_torch.models import resident as res
 from sdpl_slam_torch.ops import geometry as tg
 from sdpl_slam_torch.solvers import frame_solvers as tfs
+from sdpl_slam_torch.utils.cuda_graphs import loop_runner
 
 torch.set_num_threads(2)
 
@@ -226,7 +227,7 @@ def test_loop_runner_takes_the_loop():
         while bool(flag):
             body()
 
-    with tfs.loop_runner(run):
+    with loop_runner(run):
         taken = tfs.solve_flow_pose(T0, torch.eye(4), pt, lt, KT, **OBJ)
     assert len(calls) == 1 and calls[0].dtype == torch.bool
     assert taken.host_syncs == 0 and eager.host_syncs > 0
