@@ -30,10 +30,18 @@
    global BA ran, the 7 result files parse, camera RPE of the primary and
    refined poses under the GT gates, static lines tracked in the steady
    frames, and the first frames agree with the same files run on the
-   CPU.  Every window and global BA runs as one launch of its captured
-   program with one host read (at most three captures in the phase); the
-   first window is replayed warm, the second under torch.profiler to
-   count its launches and device time.
+   CPU.  Each frame's detectors run as two graph launches of the captured
+   detector program (FAST, the line detector) and its solve as one launch
+   of the captured fused-frame program of its object-lane count and line
+   mode, both LMs ending on the card: no LM host read in the phase, one
+   detector capture and at most three fused-frame captures.  On the
+   inputs of frames 1-8 each graph program is held to its eager twin
+   (the plain version) bit for bit, the two timed in turns; one frame's
+   two graph programs under CUDA events and torch.profiler (host calls,
+   device kernels, idle share).  Every window and global BA runs as one
+   launch of its captured program with one host read (at most three
+   captures in the phase); the first window is replayed warm, the second
+   under torch.profiler to count its launches and device time.
 5. Resident phase: the first 20 of the same files tracked again with
    ``resident_tracking = True`` (the whole frame on the card against device
    state, FAST and the line detector inside the step, the map stream two
@@ -56,9 +64,9 @@
    side stream during frame t; a frame's finish runs at the start of the
    next call), the window BA at frame 19.  Checks: one FAST launch a frame,
    label streams, camera poses and object motions before the window equal
-   to the disk phase's synchronous run bit for bit; the median wall of a
-   call against that run's, the detector ms left on the calling thread,
-   LM reads a frame.
+   to the disk phase's synchronous run bit for bit, no LM host read; the
+   median wall of a call against that run's, the detector ms left on the
+   calling thread.
 7. Chained phase: the same 20 files with ``chained_tracking = True`` at
    depth 2 (the device core fed by host-sampled bundles; the next two
    frames' detectors ahead), the window BA at 19; then frames 0-9 at depth
@@ -581,6 +589,48 @@ def _check_run(system, n_frames, launches, what, t_gate, r_gate,
     return rpe, n_obj
 
 
+HOST_COMPARE_FRAMES = range(1, 9)   # disk path: graph programs against eager
+MAX_FRAME_CAPTURES = 3   # disk path: camera only, one and two object lanes
+
+
+class _RecordLoads:
+    """Records, in the frames handed to :meth:`frame`, every graph
+    program's ``load``: the program and a copy of the host arrays, so the
+    same inputs can go through the program's eager twin afterwards."""
+
+    def __init__(self):
+        self.rows = []          # (frame, [(program, arrays)])
+
+    def frame(self, t):
+        import contextlib
+
+        import numpy as np
+
+        from sdpl_slam_torch.models import frame_program as fp
+
+        if t is None:
+            return contextlib.nullcontext()
+        loads = []
+        self.rows.append((t, loads))
+        plain = fp.FrameProgram.load
+
+        def load(prog, arrays):
+            if prog.graph:
+                loads.append((prog, {k: np.array(a)
+                                     for k, a in arrays.items()}))
+            return plain(prog, arrays)
+
+        @contextlib.contextmanager
+        def patched():
+            fp.FrameProgram.load = load
+            try:
+                yield
+            finally:
+                fp.FrameProgram.load = plain
+
+        return patched()
+
+
 def disk_phase(root, out_dir):
     """The port's main path on the card: the sequence under ``root``
     through the loader, the prefetcher and ``System(settings.yaml)`` with
@@ -593,6 +643,7 @@ def disk_phase(root, out_dir):
 
     from sdpl_slam_torch.io.dataset import load_sequence, png_decoder
     from sdpl_slam_torch.io.prefetch import FramePrefetcher
+    from sdpl_slam_torch.models import frame_program as fp
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
 
@@ -614,10 +665,12 @@ def disk_phase(root, out_dir):
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
     system.tracker.lm_host_syncs = 0
+    captures = (fp.FrameProgram.captures, fp.DetectorProgram.captures)
     frame_ms, wait_ms = [], []
     pf = FramePrefetcher(load, N_FRAMES, lookahead=3)
     try:
         frames = iter(pf)
+        loads = _RecordLoads()
         for _ in range(N_FRAMES):
             t0 = time.perf_counter()
             i, frame = next(frames)
@@ -626,7 +679,8 @@ def disk_phase(root, out_dir):
             if i in LBA_FRAMES:
                 replays[i] = (copy.deepcopy(system), frame)
             t0 = time.perf_counter()
-            pose = _track_loaded(system, loaded, i, frame, nxt, nxt2)
+            with loads.frame(i if i in HOST_COMPARE_FRAMES else None):
+                pose = _track_loaded(system, loaded, i, frame, nxt, nxt2)
             torch.cuda.synchronize()
             frame_ms.append((time.perf_counter() - t0) * 1e3)
             if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
@@ -642,9 +696,14 @@ def disk_phase(root, out_dir):
     launches = fast.fast_score_pyramid.launches
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
+    captures = (fp.FrameProgram.captures - captures[0],
+                fp.DetectorProgram.captures - captures[1])
 
     rpe, n_obj = _check_run(system, N_FRAMES, launches, "disk path",
                             RPE_T_GATE, RPE_R_GATE)
+    if syncs:
+        raise AssertionError("disk path: %d LM host reads (the frame "
+                             "programs end their LMs on the card)" % syncs)
     line_ms = system.tracker.line_detect_ms
     if len(line_ms) != N_FRAMES:
         raise AssertionError("the line detector ran %d times for %d frames"
@@ -673,7 +732,101 @@ def disk_phase(root, out_dir):
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
                 line_ms=line_ms, n_lines=n_lines, launches=launches,
                 syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
-                decoder=png_decoder())
+                decoder=png_decoder(), captures=captures, loads=loads.rows)
+
+
+def host_programs_phase(rows):
+    """The disk path's graph programs against their eager twins (the plain
+    version, on buffers of their own) on the inputs each was loaded with
+    in frames ``HOST_COMPARE_FRAMES``: each program run in turns (eager,
+    graph, graph, eager), load to synchronize, the detectors on the
+    detector stream; outputs bit for bit.  Then the last frame's two graph
+    programs once more on one stream under CUDA events and once under
+    torch.profiler, a program at a time (host calls, device kernels, idle
+    share, the top kernels of each).  The twins' FAST launches are
+    comparisons and are taken back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdpl_slam_torch.models import frame_program as fp
+    from sdpl_slam_torch.ops import fast
+
+    launches = fast.fast_score_pyramid.launches
+    dev = torch.device("cuda")
+    twins, out = {}, {"detect": [], "solve": []}
+    bad = []
+    for t, loads in rows:
+        kinds = sorted("detect" if isinstance(p, fp.DetectorProgram)
+                       else "solve" for p, _ in loads)
+        if kinds != ["detect", "solve"]:
+            raise AssertionError("disk path frame %d: programs loaded %s"
+                                 % (t, kinds))
+        for prog, arrays in loads:
+            kind = "detect" if isinstance(prog, fp.DetectorProgram) else "solve"
+            twin = twins.setdefault(id(prog), prog.eager_twin())
+            stream = (fp.detector_stream(dev) if kind == "detect"
+                      else torch.cuda.current_stream(dev))
+            row = dict(frame=t, graph=[], eager=[], reads=[])
+            for who in ("eager", "graph", "graph", "eager"):
+                p = twin if who == "eager" else prog
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.cuda.stream(stream):
+                    p.load(arrays)
+                    reads = p()
+                torch.cuda.synchronize()
+                row[who].append((time.perf_counter() - t0) * 1e3)
+                if who == "eager":
+                    row["reads"].append(reads)
+                if len(row["graph"]) + len(row["eager"]) in (2, 4) and \
+                        not torch.equal(twin.out, prog.out):
+                    bad.append((t, kind))
+            out[kind].append(row)
+    fast.fast_score_pyramid.launches = launches
+    if bad:
+        raise AssertionError("disk path: graph programs differ from their "
+                             "eager twins (frame, program): %s" % bad)
+    t, loads = rows[-1]
+
+    def frame():
+        # the detectors first, as in a frame
+        for prog, arrays in sorted(loads, key=lambda x: not isinstance(
+                x[0], fp.DetectorProgram)):
+            prog.load(arrays)
+            prog()
+
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    frame()
+    torch.cuda.synchronize()
+    ev[0].record()
+    frame()
+    ev[1].record()
+    torch.cuda.synchronize()
+    ev_ms = ev[0].elapsed_time(ev[1])
+    events, wall, top = [], 0.0, {}
+    for prog, arrays in loads:
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            prog.load(arrays)
+            prog()
+            torch.cuda.synchronize()
+        wall += (time.perf_counter() - t0) * 1e3
+        ev_prog = _events(prof)
+        events += ev_prog
+        by_name = {}
+        for name, us in _device_events(ev_prog):
+            n, tot = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, tot + us)
+        kind = "detect" if isinstance(prog, fp.DetectorProgram) else "solve"
+        top[kind] = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    trace = _trace_summary(events, wall)
+    fast.fast_score_pyramid.launches = launches
+    progs = [(kind, p) for kind, memo in (
+        ("frame", fp._FRAME_PROGRAMS), ("detector", fp._DETECT_PROGRAMS))
+        for p in memo.values() if p.capture_s is not None]
+    return dict(rows=out, ev_ms=ev_ms, trace=trace, frame=t, progs=progs,
+                top=top)
 
 
 def _gt_motions_err(m, cfg):
@@ -1240,6 +1393,9 @@ def pipelined_phase(root, loaded, host_map, host_before_window,
         raise AssertionError("pipelined path: camera poses or object motions "
                              "before the window differ from the synchronous "
                              "run's")
+    if sum(run["reads"]):
+        raise AssertionError("pipelined path: LM host reads %s"
+                             % run["reads"])
     tr = system.tracker
     return dict(run, rpe=rpe, n_obj=n_obj, n_poses=len(ref),
                 n_motions=sum(len(x) for x in got_m),
@@ -1378,13 +1534,16 @@ def _memory(after):
     reserved bytes, the BA programs it keeps, the card's free bytes."""
     import torch
 
+    from sdpl_slam_torch.models import frame_program as fp
     from sdpl_slam_torch.solvers import batch_ba as bb
 
     free, total = torch.cuda.mem_get_info()
     print("  memory after %s: %.1f MiB allocated, %.1f MiB reserved by this "
-          "process (%d BA programs kept); %.1f of %.1f GiB free on the card"
+          "process (%d BA, %d fused-frame and %d detector programs kept); "
+          "%.1f of %.1f GiB free on the card"
           % (after, torch.cuda.memory_allocated() / 2 ** 20,
              torch.cuda.memory_reserved() / 2 ** 20, len(bb._PROGRAMS),
+             len(fp._FRAME_PROGRAMS), len(fp._DETECT_PROGRAMS),
              free / 2 ** 30, total / 2 ** 30))
 
 
@@ -2045,8 +2204,8 @@ def main():
 
     print("python %s, torch %s, CUDA %s" % (
         sys.version.split()[0], torch.__version__, torch.version.cuda))
-    kind = torch.cuda.get_device_name(0)
-    print("device:", kind)
+    device_name = torch.cuda.get_device_name(0)
+    print("device:", device_name)
     smi = _nvidia_smi()
     print("nvidia-smi:", smi)
 
@@ -2178,6 +2337,55 @@ def main():
               "peak device memory %.1f MiB" % (
                   res["launches"], res["launches"] // N_FRAMES, res["syncs"],
                   res["peak"] / 2 ** 20))
+        hp = host_programs_phase(res["loads"])
+        print("  [%s] host-path programs captured in the phase: %d fused "
+              "frame (one per object-lane count and line mode), %d detector"
+              % (smi, *res["captures"]))
+        for what, p in hp["progs"]:
+            print("    %s program: first call (warm-up, capture, stitch, "
+                  "launch) %.2f s, nodes by stage %s" % (
+                      what, p.capture_s, _nest_summary(p.node_counts)))
+        if res["captures"][0] > MAX_FRAME_CAPTURES or res["captures"][1] != 1:
+            raise AssertionError("disk phase: %d fused-frame and %d "
+                                 "detector programs captured (at most %d "
+                                 "and 1 expected)" % (*res["captures"],
+                                                      MAX_FRAME_CAPTURES))
+
+        def spread(rows, who):
+            v = sorted(x for r in rows for x in r[who])
+            return v[len(v) // 2], v[0], v[-1]
+
+        for what, name in (("solve", "fused frame"),
+                           ("detect", "detector")):
+            rows = hp["rows"][what]
+            g, e = spread(rows, "graph"), spread(rows, "eager")
+            print("  [%s] %s program, graph against its eager twin on the "
+                  "inputs of disk frames %d-%d (eager, graph, graph, eager "
+                  "a frame; load to synchronize): outputs bit-identical; "
+                  "graph median %.3f ms (%.3f-%.3f), eager median %.3f ms "
+                  "(%.3f-%.3f), %.1fx%s" % (
+                      smi, name, rows[0]["frame"], rows[-1]["frame"], *g,
+                      *e, e[0] / g[0],
+                      "; eager LM host reads %s" % [r["reads"][0]
+                                                   for r in rows]
+                      if what == "solve" else ""))
+        t = hp["trace"]
+        print("  [%s] frame %d's two graph programs (detectors, then the "
+              "solve) on one stream: %.3f ms by CUDA events; under "
+              "torch.profiler (a program at a time) %d host calls "
+              "enqueueing device work (%d "
+              "graph launches, %d kernel launches, %d copies), %d device "
+              "kernels summing %.2f ms, so the card is idle %.1f %% of the "
+              "events' span" % (
+                  smi, hp["frame"], hp["ev_ms"], t["host_calls"],
+                  t["graph_launches"], t["kernel_launches"], t["copies"],
+                  t["kernels"], t["busy_ms"],
+                  100 * max(0.0, 1 - t["busy_ms"] / hp["ev_ms"])))
+        for what, name in (("detect", "detector"), ("solve", "fused frame")):
+            print("    top kernels by device time, %s graph: %s" % (
+                name, "; ".join("%s x%d %.2f ms" % (_kernel_name(k), n,
+                                                   us / 1e3)
+                                for k, (n, us) in hp["top"][what])))
         warm = window_replay(res["replays"][LBA_FRAMES[0]], loaded,
                              LBA_FRAMES[0])
         first = res["ba_runs"][0]
@@ -2517,7 +2725,8 @@ def main():
         "library_ms": None,            # no PyTorch call computes FAST-9/16
     }]}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": device_name,
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -54,7 +54,7 @@ from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import frame_solvers as fs
 from ..utils import metrics
-from ..utils.device import host_array, scatter_add, to_host_async
+from ..utils.device import copy_in, host_array, scatter_add, to_host_async
 from . import frame as fr
 
 _BIG = torch.iinfo(torch.int32).max
@@ -1203,12 +1203,7 @@ class ResidentProgram:
     def load(self, arrays: dict):
         """Copy host arrays into the input buffers (pinned and
         non-blocking on the card)."""
-        for name, a in arrays.items():
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if self.device.type == "cuda":
-                self.inp[name].copy_(t.pin_memory(), non_blocking=True)
-            else:
-                self.inp[name].copy_(t)
+        copy_in(self.inp, arrays)
 
     def _step(self) -> int:
         new_state, out, syncs = self.run(self.state, **self.inp)

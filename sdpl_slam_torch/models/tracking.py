@@ -70,9 +70,10 @@ from ..utils.device import checked_device, host_array, to_host_async
 from . import frame as fr
 from . import frame_host as fh
 from .chained import ChainedDriver
+from .frame_program import (detector_program, detector_stream, frame_caps,
+                            frame_program, in_spec, out_spec, solve_objects)
 from .map_state import MapState
 from .resident import ResidentDriver, init_model, n_hypotheses
-from .resident import scene_flow_static_frac
 
 _EYE4 = np.eye(4, dtype=np.float32)
 
@@ -90,23 +91,9 @@ def check_supported(cfg: Settings) -> None:
     this first, the one place a refusal would go."""
 
 
-@functools.lru_cache(maxsize=None)
-def _det_stream(device: torch.device):
-    """The side CUDA stream the detectors of ``device`` run on (one a
-    card, so trackers and their copies share it)."""
-    return torch.cuda.Stream(device)
-
-
-def _pack(outs: dict):
-    """Device outputs -> one float32 buffer on the device and its spec
-    (name, shape, dtype); bools and counts are exact in float32."""
-    spec = [(k, tuple(v.shape), v.dtype) for k, v in outs.items()]
-    return torch.cat([v.reshape(-1).to(torch.float32)
-                      for v in outs.values()]), spec
-
-
 def _unpack(flat: np.ndarray, spec) -> dict:
-    """The inverse of :func:`_pack` on the host copy of its buffer."""
+    """The host copy of a packed float32 output -> named arrays, by its
+    spec of (name, shape, dtype) rows (``frame_program.out_spec``)."""
     out, o = {}, 0
     for name, shape, dtype in spec:
         n = int(np.prod(shape, dtype=np.int64))
@@ -503,42 +490,43 @@ class Tracking:
     def _dispatch_detectors(self, gray: np.ndarray, need_fast: bool,
                             need_lines: bool, timed: bool = False):
         """Run the detectors this frame needs on the tracker's device and
-        start the copy of their packed results home; on the card on a side
-        stream, without waiting for it.  -> a handle for
-        :meth:`_take_detections`, or None.  ``timed``: the line detector
-        is timed on its own between two synchronisations of that stream
-        (``line_detect_ms``)."""
+        start the copy of their packed results home: the detector program
+        of the image's shape and the configs (``frame_program.
+        detector_program``; on the card two graph launches on a side
+        stream, FAST and the line detector), without waiting for it.  -> a
+        handle for :meth:`_take_detections`, or None.  ``timed``: the line
+        detector is timed on its own between two synchronisations of that
+        stream (``line_detect_ms``)."""
         if not (need_fast or need_lines):
             return None
+        gray = np.ascontiguousarray(gray)
+        prog = detector_program(
+            gray.shape, gray.dtype, self._fast_cfg() if need_fast else None,
+            self._line_cfg() if need_lines else None, self.device)
         cuda = self.device.type == "cuda"
-        stream = _det_stream(self.device) if cuda else None
-        if cuda:
-            # the detectors read the default stream's earlier work (their
-            # cached constants may have been made there)
-            stream.wait_stream(torch.cuda.current_stream(self.device))
+        stream = detector_stream(self.device) if cuda else None
+        # the program reads nothing the default stream writes (its buffers
+        # are made and loaded on its own stream), so it does not wait for
+        # the frame in flight: with ``pipelined_tracking`` the next frame's
+        # detectors run beside this frame's solve
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
-            src = torch.from_numpy(np.ascontiguousarray(gray))
-            img = (src.pin_memory().to(self.device, non_blocking=True)
-                   if cuda else src)
-            parts = []
+            prog.load({"img": gray})
             if need_fast:
-                uv, _, valid = fast_ops.detect_keypoints(img, self._fast_cfg())
-                parts.append(torch.cat([uv, valid[:, None].to(uv.dtype)], 1))
+                prog.run_stage(0)
             if need_lines:
                 if timed and cuda:
                     stream.synchronize()
                 t0 = time.perf_counter()
-                seg = line_ops.detect_lines(img, self._line_cfg())
+                prog.run_stage(len(prog.stages) - 1)
                 if timed:
                     if cuda:
                         stream.synchronize()
                     self.line_detect_ms.append(
                         (time.perf_counter() - t0) * 1e3)
-                parts.append(torch.cat(
-                    [seg.uv4, seg.valid[:, None].to(seg.uv4.dtype)], 1))
-            host, ready = to_host_async(
-                torch.cat([p.reshape(-1) for p in parts]))
-        n_fast = parts[0].shape[0] if need_fast else 0
+            # on the stream of the launch: the copy is taken before the
+            # next frame's launch overwrites the output buffer
+            host, ready = to_host_async(prog.out)
+        n_fast = prog.sizes[0] // 3 if need_fast else 0
         return need_fast, need_lines, n_fast, host, ready
 
     @staticmethod
@@ -881,92 +869,69 @@ class Tracking:
     def _tensor(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=self.device)
 
-    def _flow_pose_solver(self):
-        cfg = self.cfg
-        return functools.partial(
-            fs.solve_flow_pose, K=self.K, rp_thres=cfg.rp_thres,
-            max_iterations=cfg.lm_iterations, rel_tol=cfg.lm_rel_tol)
-
     def _camera_init(self, velocity_np, last, s_uv, s_d, last_s_valid):
-        """GetInitModelCam on the device -> (T_lw, last static pixels and
-        depths with a lane dim, T_init (1, 4, 4), subset (1, NS))."""
+        """GetInitModelCam on the device (the non-joint path) -> (T_lw,
+        T_init (1, 4, 4), subset (1, NS))."""
         t = self._tensor
         T_lw = t(last["pose"])
-        s_obs, s_depth = t(last["stat_uv"])[None], t(last["stat_depth"])[None]
         u_cam = self._ransac_uniforms(self.f_id, 0, self.n_hyp_cam)[None]
         T_init, subset, _ = init_model(
-            self.K, self.cfg.pnp_reproj_error, u_cam, (t(velocity_np) @ T_lw)[None], T_lw, s_obs, s_depth,
-            t(s_uv)[None], t(s_d)[None], t(last_s_valid, torch.bool)[None])
-        return T_lw, s_obs, s_depth, T_init, subset
+            self.K, self.cfg.pnp_reproj_error, u_cam,
+            (t(velocity_np) @ T_lw)[None], T_lw, t(last["stat_uv"])[None],
+            t(last["stat_depth"])[None], t(s_uv)[None], t(s_d)[None],
+            t(last_s_valid, torch.bool)[None])
+        return T_lw, T_init, subset
+
+    def _pack_frame(self, velocity_np, last, s_uv, s_d, last_s_valid, l_use,
+                    buckets):
+        """The fused frame's packed float32 input in the layout of
+        ``frame_program.in_spec`` (the JAX package's ``_dispatch_fused``
+        layout, then this frame's RANSAC draws: the camera lane and the
+        ``MB`` object lanes) -> (flat, MB, use_obj_lines)."""
+        MB = 0 if buckets is None else buckets["pt_obs"].shape[0]
+        arrays = dict(
+            velocity=velocity_np, T_lw=last["pose"], s_obs=last["stat_uv"],
+            s_flow0=last["stat_flow"], s_depth=last["stat_depth"],
+            s_cur_uv=s_uv, s_cur_d=s_d, s_valid=last_s_valid,
+            l_obs=last["line_uv"], l_flow0=last["line_flow"],
+            l_depth=last["line_depth"], l_valid=l_use)
+        if MB:
+            arrays.update(buckets)
+        with self.host_draws():
+            arrays["u_cam"] = self._ransac_uniforms(
+                self.f_id, 0, self.n_hyp_cam).cpu().numpy()
+            arrays["u_obj"] = [self._ransac_uniforms(
+                self.f_id, k + 1, self.n_hyp_obj).cpu().numpy()
+                for k in range(MB)]
+        flat = np.concatenate([
+            np.asarray(arrays[name], np.float32).ravel()
+            for name, _, _ in in_spec(frame_caps(self), MB)])
+        return flat, MB, bool(MB and buckets["any_lines"])
 
     def _bucket_tensors(self, buckets):
         t = self._tensor
         return {k: (t(v, torch.bool) if v.dtype == bool else t(v))
                 for k, v in buckets.items() if k != "any_lines"}
 
-    def _solve_objects(self, pose, T_lw, T_wl, b, any_lines, key_f_id):
-        """GetInitModelObj + the joint flow+motion solve over the object
-        buckets ``b`` given the camera ``pose``; RANSAC draws of lane k + 1
-        of ``key_f_id``."""
-        cfg = self.cfg
-        # motion-model branch of GetInitModelObj: G = T_cw_cur . H_last
-        T_models = pose @ b["H_prev"]
-        u_obj = torch.stack([
-            self._ransac_uniforms(key_f_id, k + 1, self.n_hyp_obj)
-            for k in range(b["pt_obs"].shape[0])])
-        T_is, init_inl, init_n = init_model(
-            self.K, cfg.pnp_reproj_error, u_obj, T_models, T_lw, b["pt_obs"], b["pt_depth"],
-            b["pt_cur_uv"], b["pt_cur_d"], b["pt_valid"])
-        res = self._flow_pose_solver()(
-            T_is, T_wl,
-            fs.PointBundle(b["pt_obs"], b["pt_flow0"], b["pt_depth"],
-                           b["pt_valid"] & init_inl),
-            fs.LineBundle(b["ln_obs"], b["ln_flow0"], b["ln_depth"],
-                          b["ln_valid"]),
-            flow_prior_info=cfg.flow_prior_info_obj,
-            line_prior_info=cfg.flow_prior_info_obj,
-            use_lines=any_lines and cfg.use_lines)
-        self.lm_host_syncs += res.host_syncs
-        return dict(o_pose=res.pose, o_flow=res.flow,
-                    o_line_flow=res.line_flow,
-                    o_point_inlier=res.point_inlier,
-                    o_line_inlier=res.line_inlier, o_init_n=init_n)
-
     def _solve_frame(self, velocity_np, last, s_uv, s_d, last_s_valid,
                      l_use, buckets):
         """Camera init -> joint camera solve -> scene-flow static test ->
-        object inits -> joint object solves on ``self.device``; returns
-        the started copy of their packed outputs home (host buffer, event,
-        spec) for :func:`_unpack`."""
-        cfg, K, t = self.cfg, self.K, self._tensor
-        T_lw, s_obs, s_depth, T_init, subset = self._camera_init(
-            velocity_np, last, s_uv, s_d, last_s_valid)
-        T_wl = torch.linalg.inv(T_lw)
-        cam = self._flow_pose_solver()(
-            T_init, T_wl,
-            fs.PointBundle(s_obs, t(last["stat_flow"])[None], s_depth, subset),
-            fs.LineBundle(t(last["line_uv"])[None], t(last["line_flow"])[None],
-                          t(last["line_depth"])[None],
-                          t(l_use, torch.bool)[None]),
-            flow_prior_info=cfg.flow_prior_info_cam,
-            line_prior_info=cfg.flow_prior_info_cam, use_lines=cfg.use_lines)
-        self.lm_host_syncs += cam.host_syncs
-        outs = dict(pose=cam.pose[0], flow=cam.flow[0],
-                    line_flow=cam.line_flow[0],
-                    point_inlier=cam.point_inlier[0],
-                    line_inlier=cam.line_inlier[0])
-        if buckets is not None:
-            b = self._bucket_tensors(buckets)
-            pose = cam.pose[0]
-            # scene-flow static test (GetSceneFlowObj + DynObjTracking's
-            # x-z scene-flow fraction)
-            outs["o_static_frac"] = scene_flow_static_frac(
-                K, cfg.sf_mg_thres, pose, T_wl, b["pt_obs"], b["pt_depth"],
-                b["pt_cur_uv"], b["pt_cur_d"], b["pt_sfvalid"])
-            outs.update(self._solve_objects(
-                pose, T_lw, T_wl, b, buckets["any_lines"], self.f_id))
-        flat, spec = _pack(outs)
-        return to_host_async(flat) + (spec,)
+        object inits -> joint object solves on ``self.device``: the frame's
+        inputs packed into one buffer, copied in once, and one call of the
+        fused-frame program of its ``MB`` and line mode (on the card one
+        graph launch, the LMs ending on the device); returns the started
+        copy of its packed output home (host buffer, event, spec) for
+        :func:`_unpack`."""
+        flat, MB, use_obj_lines = self._pack_frame(
+            velocity_np, last, s_uv, s_d, last_s_valid, l_use, buckets)
+        caps = frame_caps(self)
+        prog = frame_program(self.cfg, self.K, caps, MB, use_obj_lines,
+                             self.device)
+        prog.load({"buf": flat})
+        self.lm_host_syncs += prog()
+        # on the stream of the launch: the copy is taken before the next
+        # frame's launch overwrites the output buffer
+        return to_host_async(prog.out) + (out_spec(caps, MB),)
 
     def _solve_frame_nonjoint(self, velocity_np, last, s_uv, s_d,
                               last_s_valid, l_uv, l_use, buckets):
@@ -986,7 +951,7 @@ class Tracking:
         against misplaced world points from the second tracked frame on.
         Here the init takes the pose, as on the joint path."""
         cfg, K, t = self.cfg, self.K, self._tensor
-        T_lw, _, _, T_init, subset = self._camera_init(
+        T_lw, T_init, subset = self._camera_init(
             velocity_np, last, s_uv, s_d, last_s_valid)
         depth_n = last["stat_depth"]
         if cfg.nonjoint_add_noise:
@@ -1006,10 +971,16 @@ class Tracking:
         outs = dict(pose=cam.pose, point_inlier=cam.point_inlier,
                     line_inlier=cam.line_inlier)
         if buckets is not None:
-            outs.update(self._solve_objects(
-                cam.pose, T_lw, torch.linalg.inv(T_lw),
-                self._bucket_tensors(buckets), buckets["any_lines"],
-                1000 + self.f_id))
+            b = self._bucket_tensors(buckets)
+            # the objects' draws: lane k + 1 of a stream of their own
+            u_obj = torch.stack([
+                self._ransac_uniforms(1000 + self.f_id, k + 1, self.n_hyp_obj)
+                for k in range(b["pt_obs"].shape[0])])
+            objs, syncs = solve_objects(
+                cfg, K, cam.pose, T_lw, torch.linalg.inv_ex(T_lw)[0], b,
+                u_obj, buckets["any_lines"] and cfg.use_lines)
+            self.lm_host_syncs += syncs
+            outs.update(objs)
         out = {k: v.cpu().numpy() for k, v in outs.items()}
         if buckets is not None:
             # host static test (scene flow with the already-known pose)

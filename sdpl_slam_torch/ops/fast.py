@@ -249,6 +249,16 @@ def pyramid_shapes(h: int, w: int, cfg: FastPyramidConfig = FastPyramidConfig())
     return out
 
 
+def n_keypoints(h: int, w: int, cfg: FastPyramidConfig = FastPyramidConfig()):
+    """The rows :func:`detect_keypoints` returns for an (h, w) image: every
+    level's grid candidates, at most ``n_features``."""
+    n = 0
+    for lvl, s, lh, lw in pyramid_shapes(h, w, cfg):
+        cell = max(cfg.cell // int(round(s)), 8)
+        n += (lh // cell) * (lw // cell) * cfg.per_cell
+    return min(n, cfg.n_features)
+
+
 def _detect_frames(imgs, cfg: FastPyramidConfig):
     """:func:`detect_keypoints` of each (H, W) image in ``imgs`` (one
     shape): every frame's pyramid, one :func:`fast_score_pyramid` call for

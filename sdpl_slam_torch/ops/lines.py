@@ -687,6 +687,17 @@ def _merge_all(uv4, valid, cfg: LineDetectConfig) -> Segments:
     return Segments(uv4=out, length=out_len, valid=out_valid)
 
 
+def n_segments(h: int, w: int, cfg: LineDetectConfig = LineDetectConfig()):
+    """The rows :func:`detect_lines` returns for an (h, w) image: each
+    octave's tiles, at most ``max_lines`` an octave."""
+    n = 0
+    for o in range(max(1, cfg.n_octaves)):
+        if o > 0:
+            h, w = (h + 1) // 2, (w + 1) // 2
+        n += min(cfg.max_lines, (h // cfg.tile) * (w // cfg.tile))
+    return n
+
+
 def detect_lines(img: torch.Tensor,
                  cfg: LineDetectConfig = LineDetectConfig()) -> Segments:
     """Detect line segments over ``cfg.n_octaves`` pyramid levels of the

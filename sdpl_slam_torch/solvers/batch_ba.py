@@ -785,13 +785,14 @@ class BAProgram:
         self._graph.launch()
 
     def _capture(self):
-        from ..utils.cuda_graphs import GraphRecorder, host_while, loop_runner
+        from ..utils.cuda_graphs import (GraphRecorder, capture_stream,
+                                         host_while, loop_runner)
 
         dev = self.device
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
         keep = [t.clone() for t in self.budgets[:2]]
-        side = _capture_stream(dev)
+        side = capture_stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
             for b in self.budgets[:2]:
@@ -814,18 +815,6 @@ class BAProgram:
         self.warmup_s, self.capture_s = t1 - t0, t2 - t1
         self.stitch_s = time.perf_counter() - t2
         BAProgram.captures += 1
-
-
-_STREAMS: dict = {}
-
-
-def _capture_stream(dev: torch.device) -> torch.cuda.Stream:
-    """The one side stream a device's programs warm up and capture on:
-    the caching allocator keeps freed blocks for the stream that used
-    them, so a new stream a capture would strand each warm-up's memory."""
-    if dev not in _STREAMS:
-        _STREAMS[dev] = torch.cuda.Stream(dev)
-    return _STREAMS[dev]
 
 
 _PROGRAMS: "collections.OrderedDict" = collections.OrderedDict()

@@ -72,6 +72,18 @@ def host_while(body: Callable, flag: torch.Tensor) -> None:
         body()
 
 
+_STREAMS: dict = {}
+
+
+def capture_stream(dev: torch.device) -> torch.cuda.Stream:
+    """The one side stream a device's programs warm up and capture on:
+    the caching allocator keeps freed blocks for the stream that used
+    them, so a new stream a capture would strand each warm-up's memory."""
+    if dev not in _STREAMS:
+        _STREAMS[dev] = torch.cuda.Stream(dev)
+    return _STREAMS[dev]
+
+
 def _lib():
     lib = cuda_build.load("graph_while.cu")
     if not getattr(lib, "_sdpl_bound", False):

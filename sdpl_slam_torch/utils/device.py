@@ -1,7 +1,7 @@
 """The one rule for devices in this package: the card unless the caller
 asks for the CPU, and no silent fallback from the card to the CPU; the
 scatter-add that sums in one order on either; the dense solves' library
-on the card; and the copy home that does not wait for the card."""
+on the card; and the copies in and home that do not wait for the card."""
 
 from __future__ import annotations
 
@@ -58,6 +58,20 @@ def cusolver_linalg(device: torch.device):
         yield
     finally:
         torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def copy_in(buffers: dict, arrays: dict) -> None:
+    """Copy host arrays into the device buffers of the same names: on the
+    card from a fresh pinned copy each, non-blocking (the caching host
+    allocator keeps the pinned block until the copy has run, so the next
+    frame's copy cannot overwrite it first)."""
+    for name, a in arrays.items():
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        dst = buffers[name]
+        if dst.is_cuda:
+            dst.copy_(t.pin_memory(), non_blocking=True)
+        else:
+            dst.copy_(t)
 
 
 def to_host_async(t: torch.Tensor):

@@ -4,7 +4,11 @@ CPU, the window BA on the card run twice, the line detector on the card
 against the CPU, frames from disk with nothing injected, the resident loop
 against the host path, the resident loop's captured graph against its
 eager step and without a synchronising call, the pipelined and chained
-paths on the card, and the dense-Schur window BA run twice.  Skipped where there is no card.  This file imports no JAX, so it
+paths on the card, the dense-Schur window BA run twice, the fused BA
+programs against their eager plain versions, and the host path's
+fused-frame and detector programs' graphs against their eager twins,
+without a synchronising call or an LM host read.  Skipped where there is
+no card.  This file imports no JAX, so it
 runs on a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
@@ -516,3 +520,126 @@ def test_graph_recorder_nests_while_loops(cuda):
         graph.launch()
         torch.cuda.synchronize()
         assert (int(outer), int(total)) == (4, 20)
+
+
+def _host_frames(n_frames=4):
+    """A 640x192 sequence of 2 moving objects through the host path on the
+    card (FAST and the line detector in the loop, synchronous frames); the
+    arguments of each frame's ``Tracking._pack_frame`` are recorded."""
+    from sdpl_slam_torch.models.tracking import Tracking
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    sq = SynthSequence(SynthConfig(n_frames=n_frames, n_objects=2,
+                                   noise_flow=0.1))
+    s = System(slice_settings(sq.cfg), verbose=False)
+    rec = []
+    pack = Tracking._pack_frame
+
+    def recording(self, *args):
+        rec.append((self.f_id, args))
+        return pack(self, *args)
+
+    Tracking._pack_frame = recording
+    try:
+        for t in range(n_frames):
+            f = sq.frame(t)
+            s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                         f.obj_rows, t * 0.1, n_frames)
+    finally:
+        Tracking._pack_frame = pack
+    return s, sq, rec
+
+
+@pytest.mark.gpu
+def test_frame_program_graph_matches_eager(cuda):
+    """The fused-frame program's captured graph against its eager twin on
+    the same packed input, bit for bit: the camera only and every bucket
+    width up to 16 object lanes (the recorded frame's two lanes cut or
+    repeated), each with and without the objects' line terms; a second
+    launch of a captured program makes no new capture."""
+    from sdpl_slam_torch.models import frame_program as fp
+
+    s, _, rec = _host_frames()
+    tr = s.tracker
+    assert tr.lm_host_syncs == 0
+    f_id, args = rec[-1]
+    b = args[-1]
+    assert b is not None and b["pt_obs"].shape[0] == 2
+    tr.f_id = f_id
+    caps = fp.frame_caps(tr)
+    for MB in (0, 1, 2, 4, 8, 16):
+        cut = None if MB == 0 else {
+            k: (np.concatenate([v] * (1 + MB // 2))[:MB]
+                if k != "any_lines" else v) for k, v in b.items()}
+        flat, mb, _ = tr._pack_frame(*args[:-1], cut)
+        assert mb == MB
+        for lines in ((False,) if MB == 0 else (False, True)):
+            prog = fp.frame_program(tr.cfg, tr.K, caps, MB, lines, cuda)
+            twin = prog.eager_twin()
+            for p in (prog, twin):
+                p.load({"buf": flat})
+            captures = fp.FrameProgram.captures
+            assert prog() == 0
+            prog()
+            assert fp.FrameProgram.captures - captures <= 1
+            reads = twin()
+            assert reads > 0 and torch.equal(prog.out, twin.out), (MB, lines)
+
+
+@pytest.mark.gpu
+def test_detector_program_graph_matches_eager(cuda, seq):
+    """The detector program at KITTI scale, captured as two graphs (FAST,
+    the line detector) on the detector stream, against its eager twin:
+    packed output bit for bit, one FAST launch a replay."""
+    from sdpl_slam_torch.models import frame_program as fp
+
+    s = System(slice_settings(seq.cfg), verbose=False, device="cuda")
+    tr = s.tracker
+    gray = seq.frame(1).gray
+    prog = fp.detector_program(gray.shape, gray.dtype, tr._fast_cfg(),
+                               tr._line_cfg(), cuda)
+    twin = prog.eager_twin()
+    stream = fp.detector_stream(cuda)
+    with torch.cuda.stream(stream):
+        for p in (prog, twin):
+            p.load({"img": gray})
+        prog()
+        before = tf.fast_score_pyramid.launches
+        prog()
+        assert tf.fast_score_pyramid.launches - before == 1
+        twin()
+    torch.cuda.synchronize()
+    assert prog.graph and len(prog.node_counts) == 2
+    assert torch.equal(prog.out, twin.out)
+
+
+@pytest.mark.gpu
+def test_host_frame_programs_make_no_sync(cuda):
+    """A steady host-path frame's solve (pack, one copy in, one graph
+    launch, the copy home started) and its detectors (two graph launches
+    on the detector stream) call no synchronising operation under
+    ``torch.cuda.set_sync_debug_mode("warn")``, and the frames' LMs read
+    nothing on the host."""
+    import warnings
+
+    s, sq, rec = _host_frames()
+    tr = s.tracker
+    assert tr.lm_host_syncs == 0
+    f_id, args = rec[-1]
+    tr.f_id = f_id
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            handle = tr._dispatch_detectors(sq.frame(f_id).gray, True, True)
+            pulled = tr._solve_frame(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert hits == []
+    assert tr.lm_host_syncs == 0
+    from sdpl_slam_torch.utils.device import host_array
+
+    assert tr._take_detections(handle)[0] is not None
+    assert np.isfinite(host_array(*pulled[:2])).all()
