@@ -69,12 +69,19 @@
    calling thread.
 7. Chained phase: the same 20 files with ``chained_tracking = True`` at
    depth 2 (the device core fed by host-sampled bundles; the next two
-   frames' detectors ahead), the window BA at 19; then frames 0-9 at depth
-   3.  Checks: one FAST launch a frame, the RPE gates, camera poses before
-   the window within tests/test_chained.py's gates of the disk phase's host
-   run; beside the resident phase: wall a call, launches and device ms of
-   one frame under torch.profiler, bytes pushed a frame, synchronising
-   calls of one frame under the sync debug mode, peak memory.
+   frames' detectors ahead), the window BA at 19; then frames 0-13 at
+   depth 3.  Each step is one launch of the captured chained program (the
+   joint LMs in WHILE nodes).  Checks: one FAST launch a frame, the RPE
+   gates, camera poses before the window within tests/test_chained.py's
+   gates of the disk phase's host run, no LM host read, no synchronising
+   call in one steady frame under the sync debug mode, one capture a
+   depth; on frames 1-8 at both depths the eager step (the plain
+   version) from the same state, provenance and inputs, in turns with the
+   graph (eager, graph, graph, eager), gives state, provenance and output
+   bit for bit.  Beside the resident phase: wall a call, host calls and
+   device kernels of one frame under torch.profiler and the card's idle
+   share from CUDA events, bytes pushed a frame, peak memory; the
+   captures' seconds and node counts.
 8. KITTI phase: 21 frames of the same generator written in the KITTI
    layout (disparity PNGs, KITTI object rows, ``ChooseData: 2``,
    ``ba_schur: 1``, the reference's boundary shrink), 20 tracked from the
@@ -89,7 +96,12 @@
    generator's frames straight into ``System(settings)`` with lines
    injected and no BA.
 10. Non-joint phase: 6 frames with ``use_joint_optimization = False``
-   (the pose-only camera solver), lines injected.
+   (the pose-only camera solver), lines injected; each frame's solve one
+   launch of the captured non-joint program (camera init, the pose-only
+   LM's 130 iterations unrolled, the objects' LM in a WHILE node).  Checks
+   the RPE gates and no LM host read; on each tracked frame's inputs the
+   program's graph against its eager twin in turns, bit for bit; the
+   captures' seconds and node counts.
 11. BA phase: the final map with its camera poses perturbed, one window BA
    (20 frames) by the CG step and by the dense-Schur step.  Each step's
    padded window graph runs on the card through its captured program
@@ -735,34 +747,34 @@ def disk_phase(root, out_dir):
                 decoder=png_decoder(), captures=captures, loads=loads.rows)
 
 
-def host_programs_phase(rows):
-    """The disk path's graph programs against their eager twins (the plain
-    version, on buffers of their own) on the inputs each was loaded with
-    in frames ``HOST_COMPARE_FRAMES``: each program run in turns (eager,
-    graph, graph, eager), load to synchronize, the detectors on the
-    detector stream; outputs bit for bit.  Then the last frame's two graph
-    programs once more on one stream under CUDA events and once under
-    torch.profiler, a program at a time (host calls, device kernels, idle
-    share, the top kernels of each).  The twins' FAST launches are
-    comparisons and are taken back."""
+def _program_kind(prog):
+    from sdpl_slam_torch.models import frame_program as fp
+
+    return "detect" if isinstance(prog, fp.DetectorProgram) else "solve"
+
+
+def _programs_in_turns(rows, what, kinds=("detect", "solve")):
+    """Each graph program of ``kinds`` recorded in ``rows`` (frame, [(program,
+    arrays)]) against its eager twin (the plain version, on buffers of its
+    own) on the inputs it was loaded with: run in turns (eager, graph,
+    graph, eager), load to synchronize, the detectors on the detector
+    stream; outputs bit for bit, else it raises.  The twins' FAST launches
+    are comparisons and are taken back.  -> {kind: [dict(frame, graph=[ms,
+    ms], eager=[ms, ms], reads=[LM host reads of each eager run])]}"""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from sdpl_slam_torch.models import frame_program as fp
     from sdpl_slam_torch.ops import fast
 
     launches = fast.fast_score_pyramid.launches
     dev = torch.device("cuda")
-    twins, out = {}, {"detect": [], "solve": []}
+    twins, out = {}, {k: [] for k in kinds}
     bad = []
     for t, loads in rows:
-        kinds = sorted("detect" if isinstance(p, fp.DetectorProgram)
-                       else "solve" for p, _ in loads)
-        if kinds != ["detect", "solve"]:
-            raise AssertionError("disk path frame %d: programs loaded %s"
-                                 % (t, kinds))
         for prog, arrays in loads:
-            kind = "detect" if isinstance(prog, fp.DetectorProgram) else "solve"
+            kind = _program_kind(prog)
+            if kind not in kinds:
+                continue
             twin = twins.setdefault(id(prog), prog.eager_twin())
             stream = (fp.detector_stream(dev) if kind == "detect"
                       else torch.cuda.current_stream(dev))
@@ -784,8 +796,34 @@ def host_programs_phase(rows):
             out[kind].append(row)
     fast.fast_score_pyramid.launches = launches
     if bad:
-        raise AssertionError("disk path: graph programs differ from their "
-                             "eager twins (frame, program): %s" % bad)
+        raise AssertionError("%s: graph programs differ from their eager "
+                             "twins (frame, program): %s" % (what, bad))
+    return out
+
+
+def host_programs_phase(rows):
+    """The disk path's graph programs against their eager twins (the plain
+    version, on buffers of their own) on the inputs each was loaded with
+    in frames ``HOST_COMPARE_FRAMES``: each program run in turns (eager,
+    graph, graph, eager), load to synchronize, the detectors on the
+    detector stream; outputs bit for bit.  Then the last frame's two graph
+    programs once more on one stream under CUDA events and once under
+    torch.profiler, a program at a time (host calls, device kernels, idle
+    share, the top kernels of each).  The twins' FAST launches are
+    comparisons and are taken back."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from sdpl_slam_torch.models import frame_program as fp
+    from sdpl_slam_torch.ops import fast
+
+    launches = fast.fast_score_pyramid.launches
+    for t, loads in rows:
+        kinds = sorted(_program_kind(p) for p, _ in loads)
+        if kinds != ["detect", "solve"]:
+            raise AssertionError("disk path frame %d: programs loaded %s"
+                                 % (t, kinds))
+    out = _programs_in_turns(rows, "disk path")
     t, loads = rows[-1]
 
     def frame():
@@ -1170,29 +1208,50 @@ def _check_loop(system, run, n, what, host_map, host_before_window,
 
 
 SYNC_FRAME, TRACE_FRAME = 10, 11   # device loops: sync debug, profiler
-COMPARE_FRAMES = range(1, 9)       # resident: the graph against the eager step
+COMPARE_FRAMES = range(1, 9)       # device loops: the graph against the eager step
 EAGER_TRACE_FRAME = 8              # resident: one eager step under the profiler
 
 
-class _GraphAgainstEager:
-    """Wraps ``ResidentProgram.__call__`` while active: on the frames in
-    ``COMPARE_FRAMES`` an eager twin of the graph program (the plain
-    version, on buffers of its own) runs the same frame from the same state
-    and inputs, the two in turns (eager first on odd frames), each timed
-    with a synchronize on both sides and its peak memory read; the state
-    and output buffers must agree bit for bit.  The twin's FAST launches
-    are taken back from the counter and its LM reads are not the
-    tracker's: they are comparisons, not the main path."""
+def _alternate(frame):
+    """The resident phase's turns: eager first on odd frames."""
+    return ("eager", "graph") if frame % 2 else ("graph", "eager")
 
-    def __init__(self):
+
+def _eegg(frame):
+    """Eager, graph, graph, eager."""
+    return ("eager", "graph", "graph", "eager")
+
+
+class _GraphAgainstEager:
+    """Wraps ``cls.__call__`` (``ResidentProgram`` by default, or
+    ``ChainedProgram``) while active: on the frames in ``COMPARE_FRAMES``
+    an eager twin of the graph program (the plain version, on buffers of
+    its own) runs the same frame from the same carried state and inputs.
+    The runs go in the order ``turns(frame)`` gives, each from the state
+    the frame started from, each timed with a synchronize on both sides
+    and its peak memory read; the carried state (and, for the chained
+    step, the provenance) and the output buffers must agree bit for bit.
+    The comparisons' FAST launches are taken back from the counter (one
+    graph run is the main path's) and the twin's LM reads are not the
+    tracker's: they are comparisons, not the main path.  The first eager
+    run of frame ``trace_frame`` runs under torch.profiler, and so does the
+    last graph run of frame ``graph_trace_frame``."""
+
+    def __init__(self, cls=None, turns=_alternate,
+                 trace_frame=EAGER_TRACE_FRAME, graph_trace_frame=None):
         self.rows, self.eager_trace, self.capture_s = [], None, None
+        self.graph_trace = None
         self._frame = 0
+        self._cls, self._turns, self._trace = cls, turns, trace_frame
+        self._graph_trace = graph_trace_frame
 
     def __enter__(self):
         from sdpl_slam_torch.models import resident as res
 
         self._res = res
-        self._call = res.ResidentProgram.__call__
+        self._cls = cls = self._cls or res.ResidentProgram
+        self._own = "__call__" in vars(cls)
+        self._call = cls.__call__
         twins = {}
 
         def both(prog):
@@ -1204,11 +1263,14 @@ class _GraphAgainstEager:
             return self._compare(prog, twins.setdefault(id(prog),
                                                          prog.eager_twin()))
 
-        res.ResidentProgram.__call__ = both
+        cls.__call__ = both
         return self
 
     def __exit__(self, *exc):
-        self._res.ResidentProgram.__call__ = self._call
+        if self._own:
+            self._cls.__call__ = self._call
+        else:
+            del self._cls.__call__
         return False
 
     def _timed(self, fn, trace=False):
@@ -1243,37 +1305,51 @@ class _GraphAgainstEager:
 
         from sdpl_slam_torch.ops import fast
 
-        for dst, src in zip(twin.state, prog.state):
-            dst.copy_(src)
+        start = [t.clone() for t in prog.held()]
         for k, t in prog.inp.items():
             twin.inp[k].copy_(t)
-        trace = self._frame == EAGER_TRACE_FRAME
-        order = ("eager", "graph") if self._frame % 2 else ("graph", "eager")
-        got = {}
-        for who in order:
-            got[who] = self._timed(twin if who == "eager" else
-                                   (lambda: self._call(prog)),
-                                   trace=trace and who == "eager")
-        # the twin's FAST launch is a comparison: take it back
-        fast.fast_score_pyramid.launches -= got["eager"][3]
+        turns = self._turns(self._frame)
+        traced = (turns.index("eager") if self._frame == self._trace
+                  else len(turns) - 1 - turns[::-1].index("graph")
+                  if self._frame == self._graph_trace else None)
+        launches = fast.fast_score_pyramid.launches
+        got = {"eager": [], "graph": []}
+        for i, who in enumerate(turns):
+            p = twin if who == "eager" else prog
+            for dst, src in zip(p.held(), start):
+                dst.copy_(src)
+            got[who].append(self._timed(
+                twin if who == "eager" else (lambda: self._call(prog)),
+                trace=i == traced))
+        fast.fast_score_pyramid.launches = launches + got["graph"][0][3]
         if self.capture_s is None:
             self.capture_s = prog.capture_s
-        bad = [name for name, a, b in zip(self._res.ResidentState._fields,
-                                          twin.state, prog.state)
+        names = list(self._res.ResidentState._fields) + sorted(
+            getattr(prog, "prov", {}))
+        bad = [name for name, a, b in zip(names, twin.held(), prog.held())
                if not torch.equal(a, b)]
         if not torch.equal(twin.out, prog.out):
             bad.append("out")
+
+        def mean(who, i):
+            v = [r[i] for r in got[who] if r[i] is not None]
+            return sum(v) / len(v) if v else None
+
         self.rows.append(dict(frame=self._frame, bad=bad,
-                              eager_ms=got["eager"][1],
-                              graph_ms=got["graph"][1],
-                              eager_peak=got["eager"][2],
-                              graph_peak=got["graph"][2],
-                              eager_ev_ms=got["eager"][5],
-                              graph_ev_ms=got["graph"][5],
-                              eager_reads=got["eager"][0]))
-        if trace:
-            self.eager_trace = got["eager"][4]
-        return got["graph"][0]
+                              eager_ms=mean("eager", 1),
+                              graph_ms=mean("graph", 1),
+                              eager_all=[r[1] for r in got["eager"]],
+                              graph_all=[r[1] for r in got["graph"]],
+                              eager_peak=got["eager"][0][2],
+                              graph_peak=got["graph"][0][2],
+                              eager_ev_ms=mean("eager", 5),
+                              graph_ev_ms=mean("graph", 5),
+                              eager_reads=got["eager"][0][0]))
+        if traced is not None and turns[traced] == "eager":
+            self.eager_trace = got["eager"][0][4]
+        elif traced is not None:
+            self.graph_trace = got["graph"][-1][4]
+        return got["graph"][-1][0]
 
 
 def _trace_summary(events, wall_ms, exclude=()):
@@ -1419,31 +1495,41 @@ def _abs_pose_worst(ref, got):
 
 # tests/test_chained.py's gates against the host path, by depth
 CHAINED_HOST_GATES = {2: (0.02, 0.2), 3: (0.03, 0.3)}
-N_CHAINED3 = 10   # frames of the depth-3 run
+N_CHAINED3 = 14   # frames of the depth-3 run (frames 9-12 steady)
 
 
 def chained_phase(root, loaded, host_map, host_before_window):
     """The chained loop on the card: the resident phase's files and
     settings with ``chained_tracking = True`` at depth 2, the next two
-    frames' images as hints, the window BA at frame 19; then frames 0-9 at
-    depth 3.  Checks one FAST launch a frame, the RPE gates, the camera
-    poses before the window within tests/test_chained.py's gates of the
-    disk phase's host run; the sync-debug frame and the profiled frame as
-    in the resident phase; the bytes of the pushed bundle."""
+    frames' images as hints, the window BA at frame 19; then frames 0-13
+    at depth 3.  Each step is one launch of the captured chained program.
+    Checks one FAST launch a frame, the RPE gates, the camera poses before
+    the window within tests/test_chained.py's gates of the disk phase's
+    host run, no LM host read, no synchronising call in the sync-debug
+    frame; on frames 1-8 the eager twin (the plain version) from the same
+    state, provenance and inputs, in turns with the graph (eager, graph,
+    graph, eager), gives state, provenance and output bit for bit; the
+    profiled frame as in the resident phase; the bytes of the pushed
+    bundle."""
+    from sdpl_slam_torch.models import chained as tch
     from sdpl_slam_torch.models.chained import bundle_size
     from sdpl_slam_torch.models.system import System
 
     frames = [loaded.frame(i) for i in range(N_RESIDENT)]
     out = {}
+    captures = tch.ChainedProgram.captures
     for depth, n in ((2, N_RESIDENT), (3, N_CHAINED3)):
         system = System(_loop_settings(root, chained_tracking=True,
                                        chained_depth=depth), verbose=False)
         tr = system.tracker
         full = depth == 2
-        run = _loop_run(system, loaded, frames[:n], hints=True,
-                        sync_frame=SYNC_FRAME if full else None,
-                        trace_frame=TRACE_FRAME if full else None,
-                        trace_exclude=("chained_step",))
+        with _GraphAgainstEager(tch.ChainedProgram, _eegg, trace_frame=None,
+                                graph_trace_frame=EAGER_TRACE_FRAME) as cmp:
+            run = _loop_run(system, loaded, frames[:n], hints=True,
+                            sync_frame=SYNC_FRAME,
+                            trace_frame=TRACE_FRAME if full else None,
+                            trace_exclude=("chained_step",),
+                            steady_skip=COMPARE_FRAMES)
         what = "chained path, depth %d" % depth
         rpe, n_obj, labels, ref = _check_loop(
             system, run, n, what, host_map, host_before_window, window=full)
@@ -1452,17 +1538,43 @@ def chained_phase(root, loaded, host_map, host_before_window):
         if not (dt < gt and dr < gr):
             raise AssertionError("%s: camera poses part from the host run's "
                                  "by %.4f m / %.4f deg" % (what, dt, dr))
+        if [r["frame"] for r in cmp.rows] != list(COMPARE_FRAMES):
+            raise AssertionError("%s: compared frames %s, expected %s" % (
+                what, [r["frame"] for r in cmp.rows], list(COMPARE_FRAMES)))
+        for r in cmp.rows:
+            if r["bad"]:
+                raise AssertionError("%s frame %d: the graph's %s differ "
+                                     "from the eager step's"
+                                     % (what, r["frame"], r["bad"]))
+        if sum(run["reads"]) or run["sync_calls"]:
+            raise AssertionError("%s: %d LM host reads (%s), %d "
+                                 "synchronising calls in frame %d (%s)" % (
+                                     what, sum(run["reads"]), run["reads"],
+                                     run["sync_calls"], SYNC_FRAME,
+                                     run["sync_sites"]))
         caps = dict(NS=tr.NS, NLS=tr.NLS, NO=tr.NO, NLO=tr.NLO)
         out[depth] = dict(run, rpe=rpe, n_obj=n_obj, labels=labels, dt=dt,
-                          dr=dr, ba_runs=tr.ba_runs,
+                          dr=dr, ba_runs=tr.ba_runs, cmp=cmp.rows,
+                          capture_s=cmp.capture_s,
+                          graph_trace=cmp.graph_trace,
                           bundle_bytes=4 * bundle_size(caps, depth))
-    return out
+    captures = tch.ChainedProgram.captures - captures
+    if captures != 2:
+        raise AssertionError("chained phase: %d chained programs captured "
+                             "(one a depth expected)" % captures)
+    progs = [p for p in tch._CHAINED_PROGRAMS.values()
+             if p.capture_s is not None]
+    return out, progs
 
 
-def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
+def generator_phase(seq, n_frames, what, t_gate, r_gate, record=(),
+                    **over):
     """``n_frames`` of the generator straight into ``System(settings)`` on
     the card, lines injected, no BA, ``over`` set on the slice's
-    settings; returns (ms per tracked frame, FAST launches, RPE)."""
+    settings; the graph programs' loads of the frames in ``record`` are
+    recorded (``_RecordLoads``).  Returns the ms of each tracked frame,
+    the median of frames 1 on, FAST launches, LM host reads, the RPE and
+    the recorded loads."""
     import torch
 
     from sdpl_slam_torch.models.system import System
@@ -1474,13 +1586,16 @@ def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
         setattr(settings, k, v)
     system = System(settings, verbose=False, device="cuda")
     fast.fast_score_pyramid.launches = 0
+    loads = _RecordLoads()
     ms = []
     for t in range(n_frames):
         f = seq.frame(t)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
-                          f.obj_rows, t * 0.1, n_frames,
-                          line_detections=f.lines)
+        with loads.frame(t if t in record else None):
+            system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                              f.obj_rows, t * 0.1, n_frames,
+                              line_detections=f.lines)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     launches = fast.fast_score_pyramid.launches
@@ -1489,7 +1604,62 @@ def generator_phase(seq, n_frames, what, t_gate, r_gate, **over):
                              % what)
     rpe, _ = _check_run(system, n_frames, launches, what, t_gate, r_gate,
                         refined=False)
-    return sorted(ms[1:])[(n_frames - 1) // 2], launches, rpe["primary"]
+    return dict(ms=ms, median=sorted(ms[1:])[(n_frames - 1) // 2],
+                launches=launches, reads=system.tracker.lm_host_syncs,
+                rpe=rpe["primary"], loads=loads.rows)
+
+
+def nonjoint_phase(seq, smi):
+    """The non-joint path on the card (``use_joint_optimization =
+    False``): N_NONJOINT generator frames, lines injected; each frame's
+    solve one launch of the captured non-joint program.  Checks the RPE
+    gates, no LM host read; each tracked frame's non-joint program against
+    its eager twin (the plain version) on the inputs it was loaded with,
+    in turns, bit for bit."""
+    from sdpl_slam_torch.models import frame_program as fp
+
+    captures = fp.FrameProgram.captures
+    g = generator_phase(seq, N_NONJOINT, "non-joint path", NONJOINT_T_GATE,
+                        NONJOINT_R_GATE, record=range(1, N_NONJOINT),
+                        use_joint_optimization=False)
+    captures = fp.FrameProgram.captures - captures
+    if g["reads"]:
+        raise AssertionError("non-joint path: %d LM host reads" % g["reads"])
+    rows = _programs_in_turns(g["loads"], "non-joint path",
+                              kinds=("solve",))["solve"]
+    if [r["frame"] for r in rows] != list(range(1, N_NONJOINT)):
+        raise AssertionError("non-joint path: programs compared on frames "
+                             "%s" % [r["frame"] for r in rows])
+    progs = [(key[4], p) for key, p in fp._FRAME_PROGRAMS.items()
+             if key[0] and p.capture_s is not None]
+    t_err, r_err = g["rpe"]
+    print("non-joint phase: %d frames with use_joint_optimization = False "
+          "(camera init, the pose-only camera LM's 130 fixed iterations, "
+          "the objects' init and joint LM: one graph launch a frame), lines "
+          "injected: median %.2f ms a frame, all %s; %d FAST launches, %d LM "
+          "host reads, camera RPE %.6f m / %.5f deg (gates %g m / %g deg)"
+          % (N_NONJOINT, g["median"], [round(x, 2) for x in g["ms"]],
+             g["launches"], g["reads"], t_err, r_err, NONJOINT_T_GATE,
+             NONJOINT_R_GATE))
+    print("  [%s] non-joint programs captured in the phase: %d" % (
+        smi, captures))
+    for mb, p in progs:
+        print("    %d object lanes: first call (warm-up, capture, stitch, "
+              "launch) %.2f s, %d nodes by segment %s" % (
+                  mb, p.capture_s, _nodes(p.node_counts[0]),
+                  _nest_summary(p.node_counts)))
+    gm = sorted(x for r in rows for x in r["graph"])
+    em = sorted(x for r in rows for x in r["eager"])
+    print("  [%s] non-joint program, graph against its eager twin on the "
+          "inputs of frames %d-%d (eager, graph, graph, eager a frame; load "
+          "to synchronize): outputs bit-identical; graph median %.3f ms "
+          "(%.3f-%.3f), eager median %.3f ms (%.3f-%.3f), %.1fx; eager LM "
+          "host reads %s" % (
+              smi, rows[0]["frame"], rows[-1]["frame"], gm[len(gm) // 2],
+              gm[0], gm[-1], em[len(em) // 2], em[0], em[-1],
+              em[len(em) // 2] / gm[len(gm) // 2],
+              [r["reads"][0] for r in rows]))
+    _memory("the non-joint phase")
 
 
 def window_replay(replay, loaded, t):
@@ -1534,16 +1704,20 @@ def _memory(after):
     reserved bytes, the BA programs it keeps, the card's free bytes."""
     import torch
 
+    from sdpl_slam_torch.models import chained as tch
     from sdpl_slam_torch.models import frame_program as fp
+    from sdpl_slam_torch.models import resident as res
     from sdpl_slam_torch.solvers import batch_ba as bb
 
     free, total = torch.cuda.mem_get_info()
     print("  memory after %s: %.1f MiB allocated, %.1f MiB reserved by this "
-          "process (%d BA, %d fused-frame and %d detector programs kept); "
-          "%.1f of %.1f GiB free on the card"
+          "process (%d BA, %d fused-frame and non-joint, %d detector, %d "
+          "resident and %d chained programs kept); %.1f of %.1f GiB free on "
+          "the card"
           % (after, torch.cuda.memory_allocated() / 2 ** 20,
              torch.cuda.memory_reserved() / 2 ** 20, len(bb._PROGRAMS),
              len(fp._FRAME_PROGRAMS), len(fp._DETECT_PROGRAMS),
+             len(res._PROGRAMS), len(tch._CHAINED_PROGRAMS),
              free / 2 ** 30, total / 2 ** 30))
 
 
@@ -2532,16 +2706,22 @@ def main():
         _print_ba_runs(pp["ba_runs"], "pipelined phase", smi)
 
         t0 = time.perf_counter()
-        ch = chained_phase(root, loaded, res["system"].map,
-                           res["before_window"])
+        ch, ch_progs = chained_phase(root, loaded, res["system"].map,
+                                     res["before_window"])
         g0 = loaded.frame(0)
         dense = sum(np.asarray(a, dt).nbytes for a, dt in (
             (g0[1], np.float32), (g0[2], np.float32), (g0[3], np.int32)))
         print("chained phase: the first %d files with chained_tracking = "
               "True at depth 2, the next two frames' images as hints, window "
-              "BA at frame %d; then frames 0-%d at depth 3 (%.1f s)" % (
+              "BA at frame %d; then frames 0-%d at depth 3 (%.1f s); each "
+              "step one launch of the captured chained program" % (
                   N_RESIDENT, N_RESIDENT - 1, N_CHAINED3 - 1,
                   time.perf_counter() - t0))
+        for p in ch_progs:
+            print("  [%s] chained program at depth %d: first call (warm-up, "
+                  "capture, stitch, launch) %.2f s, %d nodes by segment %s"
+                  % (smi, 3 if p.prov else 2, p.capture_s,
+                     _nodes(p.node_counts), _nest_summary(p.node_counts)))
         for depth, c in sorted(ch.items()):
             gt, gr = CHAINED_HOST_GATES[depth]
             print("  depth %d: %d object motions; camera RPE %s; camera poses "
@@ -2554,32 +2734,69 @@ def main():
                       c["dt"], c["dr"], gt, gr,
                       "equal to" if c["labels"] else "differ from",
                       c["launches"]))
-            print("    wall ms per track_rgbd call: median %.2f over the "
-                  "steady frames; all %s; loop %.1f s; LM reads per frame "
-                  "%s; peak device memory %.1f MiB" % (
-                      c["steady_ms"], [round(x, 2) for x in c["call_ms"]],
-                      c["loop_s"], c["reads"], c["peak"] / 2 ** 20))
+            print("    [%s] wall ms per track_rgbd call: median %.2f over the "
+                  "steady frames past the compared ones (resident phase: "
+                  "%.2f); all %s; loop %.1f s; LM reads per frame %s; sync "
+                  "debug mode over frame %d: %d synchronising calls; peak "
+                  "device memory %.1f MiB" % (
+                      smi, c["steady_ms"], rs["steady_ms"],
+                      [round(x, 2) for x in c["call_ms"]], c["loop_s"],
+                      c["reads"], SYNC_FRAME, c["sync_calls"],
+                      c["peak"] / 2 ** 20))
+            cm = c["cmp"]
+            gm = sorted(x for r in cm for x in r["graph_all"])
+            em = sorted(x for r in cm for x in r["eager_all"])
+            print("    [%s] graph against eager step on frames %d-%d, from "
+                  "the same state, provenance and inputs (eager, graph, "
+                  "graph, eager a frame): state, provenance and output "
+                  "bit-identical on %d of %d frames; wall ms a step call "
+                  "(synchronized): graph median %.3f (%.3f-%.3f), eager "
+                  "median %.3f (%.3f-%.3f), %.1fx; eager LM host reads %s" % (
+                      smi, cm[0]["frame"], cm[-1]["frame"],
+                      sum(not r["bad"] for r in cm), len(cm),
+                      gm[len(gm) // 2], gm[0], gm[-1], em[len(em) // 2],
+                      em[0], em[-1], em[len(em) // 2] / gm[len(gm) // 2],
+                      [r["eager_reads"] for r in cm]))
             print("    bytes pushed a frame: the bundle %d B, against the "
                   "resident mode's dense depth, flow and mask planes %d B "
                   "(%.2fx); the grey image %d B in both" % (
                       c["bundle_bytes"], dense, dense / c["bundle_bytes"],
                       np.asarray(g0[0]).nbytes))
+        for depth, c in sorted(ch.items()):
+            t = c["graph_trace"]
+            ev = sorted(r["graph_ev_ms"] for r in c["cmp"]
+                        if r["frame"] >= 2 and r["graph_ev_ms"] is not None)
+            # the traced frame's other graph run: the same LM iterations
+            ev_own = [r["graph_ev_ms"] for r in c["cmp"]
+                      if r["frame"] == EAGER_TRACE_FRAME][0]
+            print("  [%s] depth %d, frame %d's step graph: under "
+                  "torch.profiler %d host calls enqueueing device work (%d "
+                  "graph launches, %d kernel launches, %d copies), %d device "
+                  "kernels summing %.2f ms; CUDA events around its other "
+                  "graph run %.3f ms, so the card is idle %.1f %% of a graph "
+                  "step (CUDA events around a graph step on frames 2-%d: "
+                  "median %.3f ms)" % (
+                      smi, depth, EAGER_TRACE_FRAME, t["host_calls"],
+                      t["graph_launches"], t["kernel_launches"], t["copies"],
+                      t["kernels"], t["busy_ms"], ev_own,
+                      100 * max(0.0, 1 - t["busy_ms"] / ev_own),
+                      COMPARE_FRAMES[-1], ev[len(ev) // 2]))
         c = ch[2]
         t = c["trace"]
-        print("  depth 2 beside the resident phase of this call: wall a call "
-              "%.2f ms (resident %.2f); frame 11 under torch.profiler %d "
-              "launches, %d device kernels summing %.2f ms (resident %d, %d, "
-              "%.2f ms); sync debug mode over frame 10: %d synchronising "
-              "calls, %d LM exit reads (resident %d, %d; %s); peak %.1f MiB "
+        print("  [%s] depth 2, frame %d under torch.profiler (the whole "
+              "track_rgbd call: the step graph, and the detector graphs of "
+              "the frame two ahead): %d host calls enqueueing device work "
+              "(%d graph launches, %d kernel launches, %d copies), %d device "
+              "kernels summing %.2f ms (resident, whose step holds the "
+              "detectors: %d host calls, %d kernels, %.2f ms); peak %.1f MiB "
               "(resident %.1f MiB)" % (
-                  c["steady_ms"], rs["steady_ms"], t["launches"],
-                  t["kernels"], t["busy_ms"], rs["trace"]["launches"],
+                  smi, TRACE_FRAME, t["host_calls"], t["graph_launches"],
+                  t["kernel_launches"], t["copies"], t["kernels"],
+                  t["busy_ms"], rs["trace"]["host_calls"],
                   rs["trace"]["kernels"], rs["trace"]["busy_ms"],
-                  c["sync_calls"], c["reads"][SYNC_FRAME],
-                  rs["sync_calls"], rs["reads"][SYNC_FRAME],
-                  c["sync_sites"], c["peak"] / 2 ** 20,
-                  rs["peak"] / 2 ** 20))
+                  c["peak"] / 2 ** 20, rs["peak"] / 2 ** 20))
         _print_ba_runs(c["ba_runs"], "chained phase, depth 2", smi)
+        _memory("the chained phase")
 
         t0 = time.perf_counter()
         kt = kitti_phase(seq, work)
@@ -2651,20 +2868,12 @@ def main():
             raise AssertionError("descriptor phase: %d FAST launches for %d "
                                  "frames" % (ds["launches"], N_DESC))
 
-    ms, n, (t_err, r_err) = generator_phase(
-        seq, N_INJECTED, "injected path", RPE_T_GATE, RPE_R_GATE)
+    g = generator_phase(seq, N_INJECTED, "injected path", RPE_T_GATE,
+                        RPE_R_GATE)
     print("injected phase: %d generator frames, lines injected, no BA: "
           "median %.2f ms a frame, %d FAST launches, camera RPE %.6f m / "
-          "%.5f deg" % (N_INJECTED, ms, n, t_err, r_err))
-    ms, n, (t_err, r_err) = generator_phase(
-        seq, N_NONJOINT, "non-joint path", NONJOINT_T_GATE, NONJOINT_R_GATE,
-        use_joint_optimization=False)
-    print("non-joint phase: %d frames with use_joint_optimization = False "
-          "(pose-only camera LM, 130 fixed iterations), lines injected: "
-          "median %.2f ms a frame, %d FAST launches, camera RPE %.6f m / "
-          "%.5f deg (gates %g m / %g deg)" % (
-              N_NONJOINT, ms, n, t_err, r_err, NONJOINT_T_GATE,
-              NONJOINT_R_GATE))
+          "%.5f deg" % (N_INJECTED, g["median"], g["launches"], *g["rpe"]))
+    nonjoint_phase(seq, smi)
     ba_phase(res["system"].map, res["system"].settings, smi)
     _memory("the BA phase")
     # the sharded phase starts processes of its own on the card: give back

@@ -29,11 +29,15 @@ the optimised-flow updates by at most ``depth`` frames of sub-pixel drift;
 mask-recovery votes miss features born since the base generation) are the
 JAX package's, and tests/test_torch_chained.py holds them to its gates.
 
-Per frame the host pushes one bundle (a float32 vector, ``bundle_spec``,
-through pinned memory without a blocking copy) and dispatches the step;
-the detectors of frames t+1 and t+2 run on a side stream from the caller's
-``next_gray`` / ``next_gray2``; the only host reads are the joint LM's
-loop exits and the lagged output copies.
+Per frame the host copies one bundle (a float32 vector, ``bundle_spec``)
+and one small aux buffer (the GT label tables and the RANSAC draws) into
+the static input buffers of a :class:`ChainedProgram` (pinned memory, no
+blocking copy) and runs it: the counterpart of the JAX package's jitted
+``build_chained_step``.  On the CPU the program runs the step eagerly; on
+the card it is captured once into CUDA graphs, the joint LMs ending in
+WHILE nodes, so a frame is one graph launch and the only host reads are
+the lagged output copies.  The detectors of frames t+1 and t+2 run on a
+side stream from the caller's ``next_gray`` / ``next_gray2``.
 """
 
 from __future__ import annotations
@@ -45,9 +49,9 @@ from ..io import native as _native
 from ..ops.geometry import Intrinsics
 from ..utils.device import to_host_async
 from . import frame_host as fh
-from .resident import (ResidentDriver, StageInputs, build_core_stage,
-                       gt_sem_table, n_hypotheses, state_from_host,
-                       state_to_host)
+from .resident import (ResidentDriver, ResidentProgram, StageInputs, _i32,
+                       _unpack_aux, build_core_stage, n_hypotheses,
+                       out_spec, state_from_host, state_to_host)
 
 _FAMS = (("s", "NS"), ("l", "NLS"), ("o", "NO"), ("ol", "NLO"))
 
@@ -369,6 +373,116 @@ def build_chained_step(cfg, K: Intrinsics, caps: dict, hw, depth=2):
     return step3 if depth >= 3 else step
 
 
+def chained_aux_spec(caps, n_cam: int, n_obj: int):
+    """(name, shape) rows of the step's small inputs, packed into one
+    float32 buffer: the GT label tables and the RANSAC draws of the
+    camera and the ``MAXO`` object lanes."""
+    return [("gt_prev", (16,)), ("gt_cur", (16,)), ("u_cam", (n_cam, 3)),
+            ("u_obj", (caps["MAXO"], n_obj, 3))]
+
+
+def build_chained_frame(cfg, K: Intrinsics, caps: dict, hw, depth=2):
+    """:func:`build_chained_step` over the program's inputs: the bundle
+    and the packed ``aux`` of :func:`chained_aux_spec`.
+
+        depth 2: run(state, bundle, aux) -> (new_state, out_buf, syncs)
+        depth 3: run(state, prov, bundle, aux)
+                 -> (new_state, new_prov, out_buf, syncs)"""
+    step = build_chained_step(cfg, K, caps, hw, depth)
+    spec = chained_aux_spec(caps, *n_hypotheses(cfg))
+
+    def small(aux):
+        a = _unpack_aux(aux, spec)
+        return (_i32(a["gt_prev"]), _i32(a["gt_cur"]), a["u_cam"],
+                a["u_obj"])
+
+    if depth >= 3:
+        def run3(state, prov, bundle, aux):
+            return step(state, prov, bundle, *small(aux))
+        return run3
+
+    def run(state, bundle, aux):
+        return step(state, bundle, *small(aux))
+    return run
+
+
+def _carried(state, prov) -> list:
+    """The chained step's carried buffers in one order: the state, then
+    the provenance by name."""
+    return list(state) + [prov[k] for k in sorted(prov)]
+
+
+class ChainedProgram(ResidentProgram):
+    """The chained step over static buffers: a :class:`ResidentProgram`
+    whose carried state also holds, at depth 3, the side provenance
+    ``prov`` (a2 / c2 per family; empty at depth 2).  A call runs the step
+    and then writes the new state and the new provenance into their
+    buffers (the provenance is composed from the state before the step,
+    inside the step).  Eager on the CPU and as the card's plain version;
+    on the card captured once into CUDA graphs at its first call."""
+
+    captures = 0
+
+    def __init__(self, run, template, prov_template: dict, inputs: dict,
+                 out_numel: int, device, graph: bool = False):
+        super().__init__(run, template, inputs, out_numel, device, graph)
+        self.prov = {k: torch.zeros(t.shape, dtype=t.dtype,
+                                    device=self.device)
+                     for k, t in prov_template.items()}
+
+    def held(self) -> list:
+        return _carried(self.state, self.prov)
+
+    def _step(self) -> int:
+        if self.prov:
+            new_state, new_prov, out, syncs = self.run(self.state, self.prov,
+                                                       **self.inp)
+        else:
+            new_state, out, syncs = self.run(self.state, **self.inp)
+            new_prov = {}
+        for dst, src in zip(self.state, new_state):
+            dst.copy_(src)
+        for k, t in new_prov.items():
+            self.prov[k].copy_(t)
+        self.out.copy_(out)
+        return syncs
+
+    def eager_twin(self) -> "ChainedProgram":
+        return ChainedProgram(
+            self.run, self.state, self.prov,
+            {k: (tuple(t.shape), t.dtype) for k, t in self.inp.items()},
+            self.out.numel(), self.device, graph=False)
+
+
+# chained programs, shared across identically configured drivers (on the
+# card a capture takes a second); the drivers hand the buffers over
+_CHAINED_PROGRAMS: dict = {}
+
+
+def chained_program(cfg, K: Intrinsics, caps: dict, hw, depth: int,
+                    template, prov_template: dict, inputs: dict,
+                    device) -> ChainedProgram:
+    """The memoized chained-step program on ``device``, keyed as the JAX
+    package's ``_CHAINED_STEP_MEMO`` (settings, caps, image size, depth)
+    and on the state, provenance and input shapes and the device.  A
+    graph program on the card, captured at its first call; an eager one
+    on the CPU."""
+    dev = torch.device(device)
+    key = (repr(cfg), (K.fx, K.fy, K.cx, K.cy), repr(sorted(caps.items())),
+           tuple(hw), depth,
+           tuple((tuple(t.shape), t.dtype) for t in template),
+           tuple((k, tuple(t.shape)) for k, t in sorted(prov_template.items())),
+           tuple((k, tuple(s), d) for k, (s, d) in sorted(inputs.items())),
+           str(dev))
+    prog = _CHAINED_PROGRAMS.get(key)
+    if prog is None:
+        n_out = sum(_numel(shape) for _, shape, _ in out_spec(caps))
+        prog = _CHAINED_PROGRAMS[key] = ChainedProgram(
+            build_chained_frame(cfg, K, caps, hw, depth), template,
+            prov_template, inputs, n_out, dev, graph=dev.type == "cuda")
+    return prog
+
+
 # ---------------------------------------------------------------------------
 # host side: shadow sampling (numpy, or the native library where it loads)
 # ---------------------------------------------------------------------------
@@ -527,7 +641,13 @@ class ChainedDriver(ResidentDriver):
     the device state) and so does every reader of the map: after a full
     drain the host base is the live state, and the provenance is reset to
     the identity.  The stop frame's own window runs at the final drain, as
-    in the port's resident driver."""
+    in the port's resident driver.
+
+    The step runs over a :class:`ChainedProgram` (shared by identically
+    configured drivers, handed over as the resident driver's program is):
+    ``state`` and, at depth 3, ``prov`` are its buffers, so everything
+    that writes them from outside (the window BA's pose, the rebase to the
+    identity) writes in place."""
 
     def __init__(self, tracker):
         super().__init__(tracker)
@@ -540,14 +660,14 @@ class ChainedDriver(ResidentDriver):
         self.planes = {}            # frame -> (depth_pre, flow, mask_rec)
         self.prev_cands = None      # (stat, line, obj, oline) candidates
         self.prev_cands2 = None     # the generation before prev_cands
-        self.prov = None            # depth-3 composed side provenance
+        self.prov = {}              # depth-3 composed side provenance
         self._det_pending = {}      # frame -> (needs, detector handle)
-        self.chained = None
         self._hw = None
 
     # -- mode transitions ----------------------------------------------
     def enter(self):
         tr = self.tr
+        self._leave_program()
         h, w = tr.last_mask_np.shape
         self._hw = (h, w)
         # the dense mirrors are not read in this mode
@@ -569,12 +689,9 @@ class ChainedDriver(ResidentDriver):
         self.planes[tr.f_id - 1] = (tr.depth_np, tr.last_flow_np,
                                     tr.last_mask_np)
         self.prev_cands = self.prev_cands2 = None
-        if self.depth >= 3:
-            self.prov = identity_prov(self.caps, tr.device)
+        self.prov = (identity_prov(self.caps, tr.device)
+                     if self.depth >= 3 else {})
         self._det_pending = {}
-        if self.chained is None:
-            self.chained = build_chained_step(tr.cfg, tr.K, self.caps,
-                                              self._hw, depth=self.depth)
 
     def exit(self):
         """Drain everything and write the device state back to the host
@@ -590,38 +707,39 @@ class ChainedDriver(ResidentDriver):
         tr.last_mask_np = np.array(mask_l)
         tr.last_flow_np = np.array(flow_l)
         tr.mask_np = tr.last_mask_np.copy()
+        self._drop_program()
         self.state = None
 
-    # -- helpers --------------------------------------------------------
-    def _push(self, a, dtype=None):
-        """A host array on the tracker's device: from pinned memory without
-        a blocking copy on the card, a copy on the CPU."""
-        t = torch.from_numpy(np.ascontiguousarray(a, dtype=dtype))
-        if self.tr.device.type != "cuda":
-            return t.clone()
-        return t.pin_memory().to(self.tr.device, non_blocking=True)
+    # -- the program and its buffers -------------------------------------
+    def _held(self) -> list:
+        return _carried(self.state, self.prov)
 
-    def _set_pose(self, pose_np):
-        """The refined pose into the chained state (a new tensor: the
-        chained step runs eagerly)."""
-        self.state = self.state._replace(
-            pose=torch.as_tensor(pose_np, device=self.tr.device))
+    def _take(self, prog, clone=False):
+        super()._take(prog, clone)
+        self.prov = ({k: t.clone() for k, t in prog.prov.items()}
+                     if clone else prog.prov)
+
+    def _step_program(self, inputs) -> ChainedProgram:
+        """The shared program of this driver's settings, depth and shapes
+        (a graph on the card), holding this driver's state."""
+        tr = self.tr
+        return self._hold(chained_program(
+            tr.cfg, tr.K, self.caps, self._hw, self.depth, self.state,
+            self.prov, inputs, tr.device))
 
     def _rebase_identity(self):
         """After a full drain the host base is the live device state: reset
         the device provenance to the identity so family-A gathers stay
-        aligned."""
+        aligned.  In place: a captured step reads these buffers."""
         dev = self.tr.device
-        rep = {}
         for fam, cap in _FAMS:
-            n = self.caps[cap]
-            rep[f"{fam}_asso"] = torch.arange(n, dtype=torch.int32,
-                                              device=dev)
-            rep[f"{fam}_cand"] = torch.full((n,), -1, dtype=torch.int32,
-                                            device=dev)
-        self.state = self.state._replace(**rep)
-        if self.depth >= 3:
-            self.prov = identity_prov(self.caps, dev)
+            ident = torch.arange(self.caps[cap], dtype=torch.int32,
+                                 device=dev)
+            getattr(self.state, f"{fam}_asso").copy_(ident)
+            getattr(self.state, f"{fam}_cand").fill_(-1)
+            if self.prov:
+                self.prov[f"a2_{fam}"].copy_(ident)
+                self.prov[f"c2_{fam}"].fill_(-1)
 
     def _set_base_from_out(self, o, frame):
         """Adopt a drained step output (the state of ``frame``) as the new
@@ -791,23 +909,18 @@ class ChainedDriver(ResidentDriver):
         self.prev_cands = (stat_tmp, line_tmp, obj_tmp, oline_tmp)
 
         t0 = time.perf_counter()
-        bundle = self._push(buf)
-        gt_prev = self._push(gt_sem_table(self._prev_gt[0]))
-        gt_cur = self._push(gt_sem_table(gt_objs))
-        n_cam, n_obj = n_hypotheses(cfg)
-        u_cam = tr._ransac_uniforms(f_id, 0, n_cam)
-        u_obj = torch.stack([tr._ransac_uniforms(f_id, k + 1, n_obj)
-                             for k in range(tr.MAXO)])
+        spec = chained_aux_spec(self.caps, *n_hypotheses(cfg))
+        aux = np.zeros(sum(_numel(shape) for _, shape in spec), np.float32)
+        self._labels_and_draws(_unpack_aux(aux, spec), gt_objs, f_id)
+        arrays = dict(bundle=buf, aux=aux)
+        prog = self._step_program({k: (a.shape, torch.float32)
+                                   for k, a in arrays.items()})
+        prog.load(arrays)
         with torch.profiler.record_function("chained_step"):
-            if self.depth >= 3:
-                self.state, self.prov, out, syncs = self.chained(
-                    self.state, self.prov, bundle, gt_prev, gt_cur, u_cam,
-                    u_obj)
-            else:
-                self.state, out, syncs = self.chained(
-                    self.state, bundle, gt_prev, gt_cur, u_cam, u_obj)
-        tr.lm_host_syncs += syncs
-        host, ready = to_host_async(out)
+            tr.lm_host_syncs += prog()
+        # on the stream of the launch: the copy is taken before the next
+        # frame's launch overwrites the output buffer
+        host, ready = to_host_async(prog.out)
         timing[1] = (time.perf_counter() - t0) * 1e3
         # slot 0: the host's prep (mask recovery, sampling, selections)
         timing[0] = (time.perf_counter() - t_all) * 1e3 - timing[1]

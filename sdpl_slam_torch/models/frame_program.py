@@ -1,18 +1,23 @@
-"""The host tracking path's two per-frame programs over static buffers.
+"""The host tracking path's per-frame programs over static buffers.
 
-Counterpart of the two compiled programs of the JAX package's host path
+Counterpart of the compiled programs of the JAX package's host path
 (``models.tracking``): the fused frame, ``fused_track_packed`` /
 ``fused_cam_only_packed`` (camera init by RANSAC, the camera's joint
 flow+pose LM, the scene-flow static test, the object inits and the
 objects' joint flow+motion LM, from one packed float32 input to one
-packed float32 output), and the detector program, the jitted ``run`` of
-``Tracking._dispatch_detectors`` (FAST and the line detector into one
-packed output).
+packed float32 output); the non-joint frame of ``use_joint_optimization
+= False``, its jitted ``_init_cam``, ``_cam_pose_only`` and
+``_obj_init_solve`` (camera init, the pose-only LM on fixed structure,
+the object inits and the objects' joint LM); and the detector program,
+the jitted ``run`` of ``Tracking._dispatch_detectors`` (FAST and the line
+detector into one packed output).
 
-:func:`fused_track` and :func:`fused_cam_only` are plain functions of the
-packed input; :func:`in_spec` / :func:`out_spec` are the JAX package's
-layouts (``CAM_SPECS`` + ``_obj_specs(MB)`` and ``_out_specs(MB)``), the
-input followed by the RANSAC draws, which JAX takes as a key.
+:func:`fused_track` / :func:`fused_cam_only` and :func:`nonjoint_track` /
+:func:`nonjoint_cam_only` are plain functions of a packed input;
+:func:`in_spec` / :func:`out_spec` are the JAX package's layouts
+(``CAM_SPECS`` + ``_obj_specs(MB)`` and ``_out_specs(MB)``), the input
+followed by the RANSAC draws, which JAX takes as a key;
+:func:`nonjoint_in_spec` / :func:`nonjoint_out_spec` the non-joint frame's.
 
 A :class:`FrameProgram` runs such functions (its stages) over static
 buffers: the host copies a frame's inputs into ``inp`` (:meth:`load`),
@@ -24,9 +29,10 @@ nodes), so a frame is one graph launch a stage and reads nothing back
 until the caller copies ``out`` home behind it on the same stream.  A
 failed capture or launch raises; nothing falls back to the eager run.
 
-:func:`frame_program` and :func:`detector_program` memoize the programs
-at module level, one per static shape, as JAX compiles one program per
-static argument set: never on a tracker, which may be copied.
+:func:`frame_program`, :func:`nonjoint_program` and
+:func:`detector_program` memoize the programs at module level, one per
+static shape, as JAX compiles one program per static argument set: never
+on a tracker, which may be copied.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from ..ops import fast as fast_ops
+from ..ops import geometry
 from ..ops import lines as line_ops
 from ..ops.geometry import Intrinsics
 from ..solvers import frame_solvers as fs
@@ -57,7 +64,7 @@ def in_spec(caps: dict, MB: int):
     ``MB`` object lanes, ``_obj_specs(MB)``, then the RANSAC draws of the
     camera and of each object lane.  ``caps``: NS, NLS, P, L, n_cam,
     n_obj."""
-    NS, NLS, P, L = caps["NS"], caps["NLS"], caps["P"], caps["L"]
+    NS, NLS = caps["NS"], caps["NLS"]
     spec = [
         ("velocity", (4, 4), "f"), ("T_lw", (4, 4), "f"),
         ("s_obs", (NS, 2), "f"), ("s_flow0", (NS, 2), "f"),
@@ -66,38 +73,89 @@ def in_spec(caps: dict, MB: int):
         ("l_obs", (NLS, 4), "f"), ("l_flow0", (NLS, 4), "f"),
         ("l_depth", (NLS, 2), "f"), ("l_valid", (NLS,), "bool"),
     ]
-    if MB:
-        spec += [
-            ("pt_obs", (MB, P, 2), "f"), ("pt_flow0", (MB, P, 2), "f"),
+    return spec + _obj_in_rows(caps, MB) + _draw_rows(caps, MB)
+
+
+def _obj_in_rows(caps: dict, MB: int):
+    """The object buckets' input rows (the JAX package's
+    ``_obj_specs(MB)``), none without object lanes."""
+    P, L = caps["P"], caps["L"]
+    if not MB:
+        return []
+    return [("pt_obs", (MB, P, 2), "f"), ("pt_flow0", (MB, P, 2), "f"),
             ("pt_depth", (MB, P), "f"), ("pt_cur_uv", (MB, P, 2), "f"),
             ("pt_cur_d", (MB, P), "f"), ("pt_valid", (MB, P), "bool"),
             ("pt_sfvalid", (MB, P), "bool"),
             ("ln_obs", (MB, L, 4), "f"), ("ln_flow0", (MB, L, 4), "f"),
             ("ln_depth", (MB, L, 2), "f"), ("ln_valid", (MB, L), "bool"),
-            ("H_prev", (MB, 4, 4), "f"),
-        ]
-    spec.append(("u_cam", (caps["n_cam"], 3), "f"))
+            ("H_prev", (MB, 4, 4), "f")]
+
+
+def _draw_rows(caps: dict, MB: int):
+    """The RANSAC draws of the camera and of each object lane."""
+    rows = [("u_cam", (caps["n_cam"], 3), "f")]
     if MB:
-        spec.append(("u_obj", (MB, caps["n_obj"], 3), "f"))
-    return spec
+        rows.append(("u_obj", (MB, caps["n_obj"], 3), "f"))
+    return rows
+
+
+def _obj_out_rows(caps: dict, MB: int):
+    """The object lanes' output rows, but the static fraction."""
+    P, L = caps["P"], caps["L"]
+    f32, b, i32 = torch.float32, torch.bool, torch.int32
+    if not MB:
+        return []
+    return [("o_pose", (MB, 4, 4), f32), ("o_flow", (MB, P, 2), f32),
+            ("o_line_flow", (MB, L, 4), f32), ("o_point_inlier", (MB, P), b),
+            ("o_line_inlier", (MB, L), b), ("o_init_n", (MB,), i32)]
 
 
 def out_spec(caps: dict, MB: int):
     """(name, shape, dtype) rows of the fused frame's packed output, in the
     JAX package's ``_out_specs(MB)`` order; bools and counts are exact in
     float32."""
-    NS, NLS, P, L = caps["NS"], caps["NLS"], caps["P"], caps["L"]
-    f32, b, i32 = torch.float32, torch.bool, torch.int32
+    NS, NLS = caps["NS"], caps["NLS"]
+    f32, b = torch.float32, torch.bool
     spec = [("pose", (4, 4), f32), ("flow", (NS, 2), f32),
             ("line_flow", (NLS, 4), f32), ("point_inlier", (NS,), b),
-            ("line_inlier", (NLS,), b)]
+            ("line_inlier", (NLS,), b)] + _obj_out_rows(caps, MB)
     if MB:
-        spec += [("o_pose", (MB, 4, 4), f32), ("o_flow", (MB, P, 2), f32),
-                 ("o_line_flow", (MB, L, 4), f32),
-                 ("o_point_inlier", (MB, P), b),
-                 ("o_line_inlier", (MB, L), b), ("o_init_n", (MB,), i32),
-                 ("o_static_frac", (MB,), f32)]
+        spec.append(("o_static_frac", (MB,), f32))
     return spec
+
+
+def nonjoint_in_spec(caps: dict, MB: int):
+    """(name, shape, kind) rows of the non-joint frame's packed input: the
+    camera init's inputs (as :func:`in_spec`'s, without the flows), the
+    pose-only solve's fixed structure (the last frame's noisy world points
+    ``X_w``, the line endpoints in the world ``l_Xs`` / ``l_Xe``, the
+    current segments ``l_uv`` and their use flags), the object buckets and
+    ``T_wl``, the inverse of the last pose, then the RANSAC draws."""
+    NS, NLS = caps["NS"], caps["NLS"]
+    spec = [
+        ("velocity", (4, 4), "f"), ("T_lw", (4, 4), "f"),
+        ("s_obs", (NS, 2), "f"), ("s_depth", (NS,), "f"),
+        ("s_cur_uv", (NS, 2), "f"), ("s_cur_d", (NS,), "f"),
+        ("s_valid", (NS,), "bool"),
+        ("X_w", (NS, 3), "f"), ("l_Xs", (NLS, 3), "f"),
+        ("l_Xe", (NLS, 3), "f"), ("l_uv", (NLS, 4), "f"),
+        ("l_use", (NLS,), "bool"),
+    ] + _obj_in_rows(caps, MB)
+    if MB:
+        spec.append(("T_wl", (4, 4), "f"))
+    return spec + _draw_rows(caps, MB)
+
+
+def nonjoint_out_spec(caps: dict, MB: int):
+    """(name, shape, dtype) rows of the non-joint frame's packed output:
+    the pose-only solve's pose, inlier masks and final cost, then the
+    objects' rows as in :func:`out_spec` (their static test runs on the
+    host)."""
+    NS, NLS = caps["NS"], caps["NLS"]
+    f32, b = torch.float32, torch.bool
+    return [("pose", (4, 4), f32), ("point_inlier", (NS,), b),
+            ("line_inlier", (NLS,), b),
+            ("cost", (), f32)] + _obj_out_rows(caps, MB)
 
 
 def numel(spec) -> int:
@@ -202,6 +260,59 @@ def fused_track(cfg, K: Intrinsics, caps: dict, buf: torch.Tensor, MB: int,
                                     a["u_obj"], use_obj_lines)
     outs.update(objs, o_static_frac=static_frac)
     return _pack(outs, out_spec(caps, MB)), syncs + obj_syncs
+
+
+# ---------------------------------------------------------------------------
+# the non-joint frame (bJoint = false)
+# ---------------------------------------------------------------------------
+
+def _nonjoint_cam(cfg, K, a) -> dict:
+    """GetInitModelCam, then PoseOptimizationNewWithLines (Optimizer.cc:
+    5900) on the last frame's fixed structure, from the unpacked input
+    ``a`` of :func:`nonjoint_in_spec` -> the camera outputs by name."""
+    T_lw = a["T_lw"]
+    T_init, subset, _ = init_model(
+        K, cfg.pnp_reproj_error, a["u_cam"][None],
+        (a["velocity"] @ T_lw)[None], T_lw, a["s_obs"][None],
+        a["s_depth"][None], a["s_cur_uv"][None], a["s_cur_d"][None],
+        a["s_valid"][None])
+    l_uv = a["l_uv"]
+    lcoef = geometry.infinite_line_image(l_uv[:, :2], l_uv[:, 2:])
+    cam = fs.solve_pose_only(
+        T_init[0], a["X_w"], a["s_cur_uv"], subset[0], a["l_Xs"], a["l_Xe"],
+        lcoef, a["l_use"], K, rp_thres=0.01, line_weight_thr=50,
+        use_lines=cfg.use_lines)
+    return dict(pose=cam.pose, point_inlier=cam.point_inlier,
+                line_inlier=cam.line_inlier, cost=cam.final_cost)
+
+
+def nonjoint_cam_only(cfg, K: Intrinsics, caps: dict, buf: torch.Tensor):
+    """The JAX package's ``_init_cam`` then ``_cam_pose_only``: a non-joint
+    frame without object lanes, from the packed input ``buf`` of
+    :func:`nonjoint_in_spec` (``MB`` = 0) -> (the packed output of
+    :func:`nonjoint_out_spec`, LM host reads: none, the pose-only LM runs
+    a fixed count)."""
+    outs = _nonjoint_cam(cfg, K, _unpack(buf, nonjoint_in_spec(caps, 0)))
+    return _pack(outs, nonjoint_out_spec(caps, 0)), 0
+
+
+def nonjoint_track(cfg, K: Intrinsics, caps: dict, buf: torch.Tensor,
+                   MB: int, use_obj_lines: bool):
+    """A non-joint frame with ``MB`` object lanes: :func:`nonjoint_cam_only`'s
+    camera, then the JAX package's ``_obj_init_solve`` (the object inits
+    and the objects' joint flow+motion LM) on the solved pose -> (the
+    packed output of :func:`nonjoint_out_spec`, LM host reads).
+
+    One departure from the JAX package (ROADMAP C4): its non-joint object
+    chain hands the init the inverse of the last pose where the init
+    expects the pose itself; here the init takes the pose, as on the
+    joint path."""
+    a = _unpack(buf, nonjoint_in_spec(caps, MB))
+    outs = _nonjoint_cam(cfg, K, a)
+    objs, syncs = solve_objects(cfg, K, outs["pose"], a["T_lw"], a["T_wl"],
+                                a, a["u_obj"], use_obj_lines)
+    outs.update(objs)
+    return _pack(outs, nonjoint_out_spec(caps, MB)), syncs
 
 
 # ---------------------------------------------------------------------------
@@ -358,28 +469,49 @@ def _solve_settings(cfg) -> tuple:
             float(cfg.sf_mg_thres), float(cfg.pnp_reproj_error))
 
 
+def _solve_program(nonjoint: bool, cfg, K: Intrinsics, caps: dict, MB: int,
+                   use_obj_lines: bool, device) -> FrameProgram:
+    dev = torch.device(device)
+    use_obj_lines = bool(use_obj_lines and MB and cfg.use_lines)
+    key = (nonjoint, _solve_settings(cfg), (K.fx, K.fy, K.cx, K.cy),
+           tuple(sorted(caps.items())), MB, use_obj_lines, str(dev))
+    prog = _FRAME_PROGRAMS.get(key)
+    if prog is None:
+        specs = ((nonjoint_in_spec, nonjoint_out_spec) if nonjoint
+                 else (in_spec, out_spec))
+        track, cam_only = ((nonjoint_track, nonjoint_cam_only) if nonjoint
+                           else (fused_track, fused_cam_only))
+        if MB:
+            fn = functools.partial(track, cfg, K, caps, MB=MB,
+                                   use_obj_lines=use_obj_lines)
+        else:
+            fn = functools.partial(cam_only, cfg, K, caps)
+        prog = _FRAME_PROGRAMS[key] = FrameProgram(
+            [lambda inp: fn(inp["buf"])],
+            {"buf": ((numel(specs[0](caps, MB)),), torch.float32)},
+            [numel(specs[1](caps, MB))], dev, graph=dev.type == "cuda")
+    return prog
+
+
 def frame_program(cfg, K: Intrinsics, caps: dict, MB: int,
                   use_obj_lines: bool, device) -> FrameProgram:
     """The memoized fused-frame program on ``device``: one per (the
     settings it reads, K, caps, ``MB`` object lanes (0:
     :func:`fused_cam_only`), ``use_obj_lines``, device).  A graph program
     on the card, captured at its first call; an eager one on the CPU."""
-    dev = torch.device(device)
-    use_obj_lines = bool(use_obj_lines and MB and cfg.use_lines)
-    key = (_solve_settings(cfg), (K.fx, K.fy, K.cx, K.cy),
-           tuple(sorted(caps.items())), MB, use_obj_lines, str(dev))
-    prog = _FRAME_PROGRAMS.get(key)
-    if prog is None:
-        if MB:
-            fn = functools.partial(fused_track, cfg, K, caps, MB=MB,
-                                   use_obj_lines=use_obj_lines)
-        else:
-            fn = functools.partial(fused_cam_only, cfg, K, caps)
-        prog = _FRAME_PROGRAMS[key] = FrameProgram(
-            [lambda inp: fn(inp["buf"])],
-            {"buf": ((numel(in_spec(caps, MB)),), torch.float32)},
-            [numel(out_spec(caps, MB))], dev, graph=dev.type == "cuda")
-    return prog
+    return _solve_program(False, cfg, K, caps, MB, use_obj_lines, device)
+
+
+def nonjoint_program(cfg, K: Intrinsics, caps: dict, MB: int,
+                     use_obj_lines: bool, device) -> FrameProgram:
+    """The memoized non-joint frame program on ``device``
+    (:func:`nonjoint_track`, or :func:`nonjoint_cam_only` for ``MB`` = 0),
+    the counterpart of the JAX package's jitted ``_init_cam``,
+    ``_cam_pose_only`` and ``_obj_init_solve``; keyed as
+    :func:`frame_program`, apart from it.  On the card one graph a frame:
+    the pose-only LM's 130 iterations unrolled, the objects' LM a WHILE
+    node."""
+    return _solve_program(True, cfg, K, caps, MB, use_obj_lines, device)
 
 
 def detector_program(shape, dtype: np.dtype, fast_cfg, line_cfg,

@@ -1171,7 +1171,10 @@ class ResidentProgram:
     and captures it into CUDA graphs (:class:`utils.cuda_graphs.GraphRecorder`:
     the two LM loops become WHILE nodes); every call then launches the
     stitched graph and reads nothing on the host.  A failed capture or
-    launch raises; nothing falls back to the eager run."""
+    launch raises; nothing falls back to the eager run.  ``captures``
+    counts the programs of the class captured in this process."""
+
+    captures = 0
 
     def __init__(self, run, template: ResidentState, inputs: dict,
                  out_numel: int, device, graph: bool = False):
@@ -1185,6 +1188,7 @@ class ResidentProgram:
         self.out = torch.zeros(out_numel, dtype=torch.float32, device=dev)
         self._owner = None          # the driver whose state the buffers hold
         self.capture_s = None       # seconds of the warm-up and capture
+        self.node_counts = None     # the captured graphs' nodes, nested
         self._graph = None
         if graph and dev.type != "cuda":
             raise RuntimeError("ResidentProgram(graph=True) needs a CUDA "
@@ -1204,6 +1208,12 @@ class ResidentProgram:
         """Copy host arrays into the input buffers (pinned and
         non-blocking on the card)."""
         copy_in(self.inp, arrays)
+
+    def held(self) -> list:
+        """The buffers the program carries from frame to frame (what a
+        driver hands over, and what the warm-up before a capture puts
+        back)."""
+        return list(self.state)
 
     def _step(self) -> int:
         new_state, out, syncs = self.run(self.state, **self.inp)
@@ -1233,7 +1243,7 @@ class ResidentProgram:
 
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
-        keep = [t.clone() for t in self.state]
+        keep = [t.clone() for t in self.held()]
         launches = fast_ops.fast_score_pyramid.launches
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
@@ -1241,7 +1251,7 @@ class ResidentProgram:
             # warm-up: library handles, workspaces and cached constants are
             # made outside the capture; the frame's state is put back
             self._step()
-            for dst, src in zip(self.state, keep):
+            for dst, src in zip(self.held(), keep):
                 dst.copy_(src)
         fast_ops.fast_score_pyramid.launches = launches
         torch.cuda.synchronize(self.device)
@@ -1252,7 +1262,9 @@ class ResidentProgram:
                 self._step()
         self._graph = rec.stitch()
         torch.cuda.synchronize(self.device)
+        self.node_counts = self._graph.node_counts()
         self.capture_s = time.perf_counter() - t0
+        type(self).captures += 1
 
 
 # resident programs, shared across identically configured drivers (on the
@@ -1470,9 +1482,7 @@ class ResidentDriver:
         tr.last_mask_np = self.state.last_mask.cpu().numpy()
         tr.last_flow_np = self.state.last_flow.cpu().numpy()
         tr.mask_np = tr.last_mask_np.copy()
-        if self.prog is not None and self.prog.owner is self:
-            self.prog.owner = None
-        self.prog = None
+        self._drop_program()
         self.state = None
 
     # -- the program and its buffers -------------------------------------
@@ -1480,29 +1490,59 @@ class ResidentDriver:
         """Keep this driver's state in its own tensors and give up its
         program's buffers."""
         if self.prog is not None and self.prog.owner is self:
-            self.state = ResidentState(*(t.clone() for t in self.prog.state))
+            self._take(self.prog, clone=True)
+        self._drop_program()
+
+    def _drop_program(self):
+        """Give up the program without keeping its buffers' contents."""
+        if self.prog is not None and self.prog.owner is self:
             self.prog.owner = None
         self.prog = None
 
-    def _program(self, modes, inputs) -> ResidentProgram:
-        """The shared program of this frame's modes and input shapes (a
-        graph on the card), holding this driver's state; a driver that held
-        it keeps a copy of its own."""
-        tr = self.tr
-        prog = resident_program(
-            tr.cfg, tr.K, self.caps, tr.N_CAND, tr.NL_CAND,
-            tr._fast_cfg() if modes[0] else None,
-            tr._line_cfg() if modes[1] else None, modes, self.state, inputs,
-            tr.device)
+    def _held(self) -> list:
+        """This driver's carried state, in its program's ``held()`` order."""
+        return list(self.state)
+
+    def _take(self, prog, clone=False):
+        """Point this driver's state at ``prog``'s buffers (or copies)."""
+        self.state = (ResidentState(*(t.clone() for t in prog.state))
+                      if clone else prog.state)
+
+    def _hold(self, prog):
+        """Make ``prog``'s buffers hold this driver's state; a driver that
+        held them keeps a copy of its own."""
         if prog.owner is not self:
             if prog.owner is not None:
                 prog.owner._leave_program()
-            for dst, src in zip(prog.state, self.state):
+            for dst, src in zip(prog.held(), self._held()):
                 dst.copy_(src)
-            if self.prog is not None and self.prog.owner is self:
-                self.prog.owner = None
-            prog.owner, self.prog, self.state = self, prog, prog.state
+            self._drop_program()
+            prog.owner, self.prog = self, prog
+            self._take(prog)
         return prog
+
+    def _program(self, modes, inputs) -> ResidentProgram:
+        """The shared program of this frame's modes and input shapes (a
+        graph on the card), holding this driver's state."""
+        tr = self.tr
+        return self._hold(resident_program(
+            tr.cfg, tr.K, self.caps, tr.N_CAND, tr.NL_CAND,
+            tr._fast_cfg() if modes[0] else None,
+            tr._line_cfg() if modes[1] else None, modes, self.state, inputs,
+            tr.device))
+
+    def _labels_and_draws(self, a: dict, gt_objs, f_id: int):
+        """Fill the views ``a`` of a packed aux buffer: the GT label tables
+        of the previous and this frame, and this frame's RANSAC draws
+        (drawn on the host, so they go out in the one copy)."""
+        tr = self.tr
+        n_cam, n_obj = a["u_cam"].shape[0], a["u_obj"].shape[1]
+        a["gt_prev"][:] = gt_sem_table(self._prev_gt[0])
+        a["gt_cur"][:] = gt_sem_table(gt_objs)
+        with tr.host_draws():
+            a["u_cam"][:] = _np(tr._ransac_uniforms(f_id, 0, n_cam))
+            for k in range(tr.MAXO):
+                a["u_obj"][k] = _np(tr._ransac_uniforms(f_id, k + 1, n_obj))
 
     def _frame_arrays(self, gray, depth_raw, flow, mask, gt_objs, f_id,
                       point_detections, line_detections):
@@ -1526,12 +1566,7 @@ class ResidentDriver:
         spec = aux_spec(self.caps, tr.N_CAND, tr.NL_CAND, n_cam, n_obj)
         aux = np.zeros(sum(int(np.prod(s)) for _, s in spec), np.float32)
         a = _unpack_aux(aux, spec)               # views into aux
-        a["gt_prev"][:] = gt_sem_table(self._prev_gt[0])
-        a["gt_cur"][:] = gt_sem_table(gt_objs)
-        with tr.host_draws():
-            a["u_cam"][:] = _np(tr._ransac_uniforms(f_id, 0, n_cam))
-            for k in range(tr.MAXO):
-                a["u_obj"][k] = _np(tr._ransac_uniforms(f_id, k + 1, n_obj))
+        self._labels_and_draws(a, gt_objs, f_id)
         if cfg.use_sample_fea == 0 and point_detections is not None:
             n = min(len(point_detections), tr.N_CAND)
             a["cand"][:n] = np.asarray(point_detections[:n], np.float32)

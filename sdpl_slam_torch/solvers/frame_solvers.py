@@ -195,7 +195,11 @@ def solve_pose_only(
     {rp_thres, 5.991, 5.991, 5.991} (Optimizer.cc:5832,6080); outliers are
     excluded per round and may re-enter.  Every round runs its full count
     (a rejected step only raises the damping), so the solve reads nothing
-    on the host.
+    on the host.  A round is a loop body over in-place state with a
+    counter on the device: without a ``utils.cuda_graphs.loop_runner`` the
+    host runs it its fixed count; under one (the captured non-joint frame,
+    ``models.frame_program.nonjoint_program``) it becomes a WHILE node, so
+    the graph holds each body once, not 130 unrolled iterations.
     """
     dtype, dev = X_w.dtype, X_w.device
     n_valid0 = valid.sum(dtype=torch.int32)
@@ -224,9 +228,15 @@ def solve_pose_only(
             _, chi2_p, _, chi2_l, _, _ = residuals(Tc)
             return cost_of(chi2_p, chi2_l)
 
-        lam = torch.as_tensor(1e-4, dtype=dtype, device=dev)
+        # the round's state, written in place by the body; device fills,
+        # not copies from host memory: capturable
+        T = T.clone()
+        lam = torch.full((), 1e-4, dtype=dtype, device=dev)
         cost = cost_fn(T)
-        for _ in range(iters):
+        it = torch.zeros((), dtype=torch.int32, device=dev)
+        more = torch.full((), iters > 0, dtype=torch.bool, device=dev)
+
+        def body():
             r_p, chi2_p, r_l, chi2_l, xyz, Jl = residuals(T)
             w_p = pv * _huber_weight(chi2_p, delta_mono)
             w_l = lv * _huber_weight(chi2_l, delta_line)
@@ -239,9 +249,15 @@ def solve_pose_only(
             T_new = lie.se3_retract(T, dxi)
             new_cost = cost_fn(T_new)
             accept = (new_cost < cost) & torch.isfinite(new_cost)
-            lam = torch.where(accept, lam * 0.5, lam * 4.0)
-            T = torch.where(accept, T_new, T)
-            cost = torch.where(accept, new_cost, cost)
+            lam.copy_(torch.where(accept, lam * 0.5, lam * 4.0))
+            T.copy_(torch.where(accept, T_new, T))
+            cost.copy_(torch.where(accept, new_cost, cost))
+            it.add_(1)
+            more.copy_(it < iters)
+
+        if not run_loop(body, more):
+            for _ in range(iters):          # a fixed count: nothing to read
+                body()
         return T, cost
 
     T = T_init

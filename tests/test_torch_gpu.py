@@ -5,11 +5,12 @@ against the CPU, frames from disk with nothing injected, the resident loop
 against the host path, the resident loop's captured graph against its
 eager step and without a synchronising call, the pipelined and chained
 paths on the card, the dense-Schur window BA run twice, the fused BA
-programs against their eager plain versions, and the host path's
+programs against their eager plain versions, the host path's
 fused-frame and detector programs' graphs against their eager twins,
-without a synchronising call or an LM host read.  Skipped where there is
-no card.  This file imports no JAX, so it
-runs on a machine without it:
+without a synchronising call or an LM host read, and the chained step's
+and the non-joint frame's graphs against their eager twins, likewise.
+Skipped where there is no card.  This file imports no JAX, so it runs on
+a machine without it:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -p no:cacheprovider
 """
@@ -323,32 +324,35 @@ def test_disk_frames_on_card_match_cpu(cuda, seq, tmp_path):
         assert a.sum() > 0 and abs(int(a.sum()) - int(b.sum())) <= 2
 
 
-def _graph_against_eager(monkeypatch, log):
-    """Wrap ``ResidentProgram.__call__``: before each graph launch an
-    eager twin (the plain version) runs the same frame from the same state
-    buffers and inputs; ``log`` gets whether state and output agree bit
-    for bit, and which state fields do not."""
+def _graph_against_eager(monkeypatch, log, cls=None):
+    """Wrap ``cls.__call__`` (``ResidentProgram`` by default, or
+    ``ChainedProgram``): before each graph launch an eager twin (the plain
+    version) runs the same frame from the same carried state and inputs;
+    ``log`` gets which carried buffers (state fields, provenance) differ
+    and whether the outputs agree bit for bit."""
     from sdpl_slam_torch.models import resident as res
 
-    call, twins = res.ResidentProgram.__call__, {}
+    cls = cls or res.ResidentProgram
+    call, twins = cls.__call__, {}
 
     def both(prog):
         if not prog.graph:
             return call(prog)
         twin = twins.setdefault(id(prog), prog.eager_twin())
-        for dst, src in zip(twin.state, prog.state):
+        for dst, src in zip(twin.held(), prog.held()):
             dst.copy_(src)
         for k, t in prog.inp.items():
             twin.inp[k].copy_(t)
         twin()
         syncs = call(prog)
-        bad = [name for name, a, b in zip(res.ResidentState._fields,
-                                          twin.state, prog.state)
+        names = list(res.ResidentState._fields) + sorted(
+            getattr(prog, "prov", {}))
+        bad = [name for name, a, b in zip(names, twin.held(), prog.held())
                if not torch.equal(a, b)]
         log.append((bad, torch.equal(twin.out, prog.out)))
         return syncs
 
-    monkeypatch.setattr(res.ResidentProgram, "__call__", both)
+    monkeypatch.setattr(cls, "__call__", both)
 
 
 @pytest.mark.gpu
@@ -643,3 +647,161 @@ def test_host_frame_programs_make_no_sync(cuda):
 
     assert tr._take_detections(handle)[0] is not None
     assert np.isfinite(host_array(*pulled[:2])).all()
+
+
+def _chained_system(depth, n_frames=8, window=True):
+    """A 640x192 sequence of 2 moving objects and the chained settings at
+    ``depth`` on the card (FAST and the line detector in the loop); with
+    ``window`` a window of 4 frames, overlap 2: windows at frames 3 and 5,
+    each run at the start of the next frame."""
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    sq = SynthSequence(SynthConfig(n_frames=n_frames, n_objects=2,
+                                   noise_flow=0.1))
+    settings = slice_settings(sq.cfg)
+    settings.chained_tracking = True
+    settings.chained_depth = depth
+    settings.run_local_ba = window
+    settings.window_size, settings.overlap_size = 4, 2
+    settings.run_global_ba = False
+    return System(settings, verbose=False), sq
+
+
+def _track_hinted(s, sq, t, n):
+    """Frame ``t`` with the next two frames' images as hints (the chained
+    driver predispatches their detectors)."""
+    f = sq.frame(t)
+    nxt = [sq.frame(k).gray if k < n else None for k in (t + 1, t + 2)]
+    return s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                        f.obj_rows, t * 0.1, n, next_image=nxt[0],
+                        next_image2=nxt[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [2, 3])
+def test_chained_graph_matches_eager_step(cuda, monkeypatch, depth):
+    """The chained step's captured graph against its eager twin from the
+    same state, provenance and inputs, bit for bit on every frame,
+    across the window BAs' pose write and the rebase to the identity
+    provenance; one capture, no LM host read."""
+    from sdpl_slam_torch.models import chained as tch
+
+    s, sq = _chained_system(depth)
+    log = []
+    _graph_against_eager(monkeypatch, log, tch.ChainedProgram)
+    captures = tch.ChainedProgram.captures
+    n = sq.n_frames - 1
+    for t in range(n):
+        _track_hinted(s, sq, t, n)
+    assert [(r["kind"], r["frame"]) for r in s.tracker.ba_runs] == [
+        ("local", 3), ("local", 5)]
+    assert len(log) == n - 1 == 6
+    assert all(bad == [] and same_out for bad, same_out in log), log
+    assert s.tracker.lm_host_syncs == 0
+    assert tch.ChainedProgram.captures - captures == 1
+    assert s.tracker._res.prog.graph and s.tracker._res.prog.node_counts
+
+
+@pytest.mark.gpu
+def test_chained_graph_frame_makes_no_sync(cuda):
+    """A steady chained frame on the card (host sampling, one load, one
+    graph launch, the lagged drain) calls no synchronising operation
+    under ``torch.cuda.set_sync_debug_mode("warn")``."""
+    import warnings
+
+    s, sq = _chained_system(2, n_frames=7, window=False)
+    n = sq.n_frames - 1
+    for t in range(n):
+        if t != 3:
+            _track_hinted(s, sq, t, n)
+            continue
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                _track_hinted(s, sq, t, n)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert hits == []
+    assert s.tracker.lm_host_syncs == 0
+
+
+def _nonjoint_frames(n_frames=4):
+    """``_host_frames`` with ``use_joint_optimization = False``: the
+    arguments of each frame's ``Tracking._solve_frame_nonjoint``."""
+    from sdpl_slam_torch.models.tracking import Tracking
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    sq = SynthSequence(SynthConfig(n_frames=n_frames, n_objects=2,
+                                   noise_flow=0.1))
+    settings = slice_settings(sq.cfg)
+    settings.use_joint_optimization = False
+    s = System(settings, verbose=False)
+    rec = []
+    solve = Tracking._solve_frame_nonjoint
+
+    def recording(self, *args):
+        rec.append((self.f_id, args))
+        return solve(self, *args)
+
+    Tracking._solve_frame_nonjoint = recording
+    try:
+        for t in range(n_frames):
+            f = sq.frame(t)
+            s.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
+                         f.obj_rows, t * 0.1, n_frames)
+    finally:
+        Tracking._solve_frame_nonjoint = solve
+    return s, rec
+
+
+@pytest.mark.gpu
+def test_nonjoint_program_graph_matches_eager(cuda):
+    """The non-joint program's captured graph (camera init, the pose-only
+    LM's 130 iterations unrolled, the objects' LM in a WHILE node) against
+    its eager twin on the same packed input, bit for bit: the camera only
+    and one and two object lanes; a second launch makes no new capture;
+    a steady frame's solve calls no synchronising operation and reads no
+    LM exit on the host."""
+    import warnings
+
+    from sdpl_slam_torch.models import frame_program as fp
+
+    s, rec = _nonjoint_frames()
+    tr = s.tracker
+    assert tr.lm_host_syncs == 0
+    f_id, args = rec[-1]
+    b = args[-1]
+    assert b is not None and b["pt_obs"].shape[0] == 2
+    tr.f_id = f_id
+    caps = fp.frame_caps(tr)
+    for MB in (0, 1, 2):
+        cut = None if MB == 0 else {
+            k: (v[:MB] if k != "any_lines" else v) for k, v in b.items()}
+        flat, mb, lines = tr._pack_nonjoint(*args[:-1], cut)
+        assert mb == MB
+        prog = fp.nonjoint_program(tr.cfg, tr.K, caps, MB, lines, cuda)
+        twin = prog.eager_twin()
+        for p in (prog, twin):
+            p.load({"buf": flat})
+        captures = fp.FrameProgram.captures
+        assert prog() == 0
+        prog()
+        assert fp.FrameProgram.captures - captures <= 1
+        reads = twin()
+        assert (reads > 0) == (MB > 0) and torch.equal(prog.out, twin.out), MB
+        assert prog.node_counts
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = tr._solve_frame_nonjoint(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = [str(w.message) for w in caught if "synchroniz" in str(w.message)]
+    assert hits == []
+    assert tr.lm_host_syncs == 0
+    assert np.isfinite(out["pose"]).all() and out["o_pose"].shape[0] == 2
