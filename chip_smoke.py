@@ -123,6 +123,8 @@
    compared values lie within 1e-5 on either side; the Hamming matrix and
    mutual matches of frame t against t+1 identical on both; wall ms and
    kernel launches a call.
+   Then the entry phase: ``sdpl_slam_torch.entry.entry()`` (the twin of
+   ``__graft_entry__.entry``) once on the card, against the CPU.
 13. Sharded BA phase (``parallel.sharded_ba``): a world of one under NCCL on
    the disk phase's global graph, and a gloo world of 4 ranks on the one
    card on the 500-frame ``synth_big_graph`` (both layouts), each step
@@ -2281,6 +2283,43 @@ def _sharded_worker(rank, world, port, out_dir):
         torch.distributed.destroy_process_group()
 
 
+ENTRY_R_DEG, ENTRY_T_M = 0.03, 1e-4   # card vs CPU pose (North-star floor)
+ENTRY_INLIER_FLIPS = 6                # of 1200: gate ties may round apart
+
+
+def entry_phase():
+    """``sdpl_slam_torch.entry.entry()`` (the twin of the JAX package's
+    ``__graft_entry__.entry``) on the card, once warm and once timed,
+    against the same entry on the CPU."""
+    import torch
+
+    from sdpl_slam_torch.entry import entry
+    from sdpl_slam_torch.ops import lie
+
+    fn, args = entry()
+    if not all(a.is_cuda for a in args):
+        raise AssertionError("entry(): the inputs are not on the card")
+    fn(*args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pose, inl = fn(*args)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    fn_c, args_c = entry("cpu")
+    pose_c, inl_c = fn_c(*args_c)
+    pose = pose.cpu()
+    r_deg = float(lie.rotation_angle_deg(pose_c[:3, :3].T @ pose[:3, :3]))
+    t_m = float((pose_c[:3, 3] - pose[:3, 3]).abs().max())
+    flips = int((inl.cpu() != inl_c).sum())
+    out = dict(ms=ms, r_deg=r_deg, t_m=t_m, flips=flips,
+               inliers=int(inl.sum()), n=inl.numel())
+    if (not torch.isfinite(pose).all() or r_deg > ENTRY_R_DEG
+            or t_m > ENTRY_T_M or flips > ENTRY_INLIER_FLIPS):
+        raise AssertionError("entry phase: the card's solve differs from "
+                             "the CPU's: %r" % out)
+    return out
+
+
 def sharded_phase(cuda_map, settings):
     """(a) a world of one under NCCL on the card: the sharded step on the
     disk phase's global graph against the single-device step; (b) a gloo
@@ -2883,6 +2922,14 @@ def main():
     bb._PROGRAMS.clear()
     torch.cuda.empty_cache()
     _memory("dropping the BA programs and emptying the cache")
+
+    en = entry_phase()
+    print("entry phase: sdpl_slam_torch.entry.entry() (the joint flow+pose "
+          "camera LM, 1200 points, 400 lines) on the card: [%s] %.2f ms "
+          "wall; %d of %d point inliers; against the CPU: pose %.2g deg / "
+          "%.2g m (gates %g deg / %g m), %d inlier flags differ (at most %d)"
+          % (smi, en["ms"], en["inliers"], en["n"], en["r_deg"], en["t_m"],
+             ENTRY_R_DEG, ENTRY_T_M, en["flips"], ENTRY_INLIER_FLIPS))
 
     t0 = time.perf_counter()
     sh = sharded_phase(res["system"].map, res["system"].settings)

@@ -8,7 +8,8 @@ paths on the card, the dense-Schur window BA run twice, the fused BA
 programs against their eager plain versions, the host path's
 fused-frame and detector programs' graphs against their eager twins,
 without a synchronising call or an LM host read, and the chained step's
-and the non-joint frame's graphs against their eager twins, likewise.
+and the non-joint frame's graphs against their eager twins, likewise,
+and the flagship entry on the card against the CPU.
 Skipped where there is no card.  This file imports no JAX, so it runs on
 a machine without it:
 
@@ -805,3 +806,24 @@ def test_nonjoint_program_graph_matches_eager(cuda):
     assert hits == []
     assert tr.lm_host_syncs == 0
     assert np.isfinite(out["pose"]).all() and out["o_pose"].shape[0] == 2
+
+
+@pytest.mark.gpu
+def test_entry_on_the_card_matches_cpu(cuda):
+    """``entry()`` builds its inputs on the card by default, and its solve
+    there gives the CPU's pose within the North star's rotation floor
+    (0.03 deg) and 1e-4 m, with at most 6 of the 1,200 inlier flags apart
+    (a gate tie may round the other way)."""
+    from sdpl_slam_torch.entry import entry
+    from sdpl_slam_torch.ops import lie
+
+    fn, args = entry()
+    assert all(a.is_cuda for a in args)
+    pose, inl = (t.cpu() for t in fn(*args))
+    fn_c, args_c = entry("cpu")
+    pose_c, inl_c = fn_c(*args_c)
+    assert torch.isfinite(pose).all()
+    r_deg = lie.rotation_angle_deg(pose_c[:3, :3].T @ pose[:3, :3])
+    assert float(r_deg) < 0.03
+    assert float((pose_c[:3, 3] - pose[:3, 3]).abs().max()) < 1e-4
+    assert int((inl != inl_c).sum()) <= 6 and inl.sum() > 0.9 * inl.numel()

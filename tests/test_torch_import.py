@@ -45,11 +45,17 @@ SCRIPTS = ("chip_smoke.py", "examples/run_sequence_torch.py",
 
 
 def test_port_imports_without_jax():
-    """Every module of the package and the three scripts that drive it
+    """Every module of the package (walked, so a new module is held too;
+    SLICE_MODULES must be among them) and the three scripts that drive it
     import without JAX, the JAX package, OpenCV or PyYAML."""
     body = (
-        "import importlib, importlib.util, sys\n"
-        f"for m in {SLICE_MODULES!r}:\n"
+        "import importlib, importlib.util, pkgutil, sys\n"
+        "import sdpl_slam_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(\n"
+        "    sdpl_slam_torch.__path__, 'sdpl_slam_torch.')]\n"
+        f"assert set({SLICE_MODULES!r}) - {{'sdpl_slam_torch'}} <= set(mods)\n"
+        "assert len(mods) >= 45, mods\n"
+        "for m in mods:\n"
         "    importlib.import_module(m)\n"
         f"for i, path in enumerate({SCRIPTS!r}):\n"
         "    spec = importlib.util.spec_from_file_location('script%d' % i, path)\n"

@@ -70,9 +70,11 @@ def _worker(rank, port, graph, out_dir):
                 d, cost, gain, n_cg = sharded_ba.sharded_ba_step(
                     sg, sharded_ba.state_from_graph(sg), w, LAM, mesh,
                     cg_iters=CG_ITERS)
+                n_cg_all = [torch.zeros_like(n_cg) for _ in range(WORLD)]
+                torch.distributed.all_gather(n_cg_all, n_cg)
                 out[name, layout] = dict(
                     d={k: v.clone() for k, v in d.items()}, cost=float(cost),
-                    gain=float(gain),
+                    gain=float(gain), n_cg=[int(n) for n in n_cg_all],
                     bytes=sharded_ba.variable_bytes_per_device(sg))
         for layout in (False, True):
             state, cost = sharded_ba.run_sharded_ba(
@@ -227,3 +229,15 @@ def test_dryrun_twin(capsys):
     assert np.isfinite(cost)
     out = capsys.readouterr().out
     assert "dryrun_multichip OK: 8-process world (gloo" in out
+
+
+@pytest.mark.parametrize("layout", ["rep", "par"])
+@pytest.mark.parametrize("name", ["small64", "big"])
+def test_cg_count_same_on_every_rank(world, name, layout):
+    """Every rank's CG loop runs the same number of iterations, since its
+    exit test reads reduced values only: the 8 ranks' counts of the step
+    agree, and lie within the iteration cap."""
+    _, out = world
+    counts = out[name, layout]["n_cg"]
+    assert len(counts) == WORLD and len(set(counts)) == 1, counts
+    assert 0 < counts[0] <= CG_ITERS
