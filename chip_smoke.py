@@ -82,6 +82,15 @@
    device kernels of one frame under torch.profiler and the card's idle
    share from CUDA events, bytes pushed a frame, peak memory; the
    captures' seconds and node counts.
+   Then the bench phase: one pass of ``python -m sdpl_slam_torch.bench``'s
+   run (``bench.run``) at its own configuration, the JAX bench's: 54
+   generator frames (53 tracked) in the chained loop at KITTI scale,
+   nothing injected, windows at 19, 35 and 51.  Checks the RPE gates, a
+   headline above 0, one FAST launch a frame, no LM host read, three
+   windows, every section of the chained driver's timers one entry a
+   chained frame; the device-exec probe puts the chained program's
+   buffers back bit for bit and captures nothing.  Prints the bench's
+   JSON line after "bench line: ".
 8. KITTI phase: 21 frames of the same generator written in the KITTI
    layout (disparity PNGs, KITTI object rows, ``ChooseData: 2``,
    ``ba_schur: 1``, the reference's boundary shrink), 20 tracked from the
@@ -1569,6 +1578,62 @@ def chained_phase(root, loaded, host_map, host_before_window):
     return out, progs
 
 
+def bench_phase():
+    """One pass of ``python -m sdpl_slam_torch.bench`` at its own
+    configuration (54 KITTI-scale generator frames, 53 tracked in the
+    chained loop, windows at 19 / 35 / 51, nothing injected), through
+    ``bench.run``.  Checks the RPE gates and a headline above 0, one FAST
+    launch a frame, no LM host read, three windows, one entry per chained
+    frame in every section of the driver's timers; the device-exec probe
+    checks itself (carried state, provenance, inputs and output put back
+    bit for bit, no capture).  Returns the bench's JSON line and its
+    counts."""
+    import torch
+
+    from sdpl_slam_torch import bench
+    from sdpl_slam_torch.ops import fast
+
+    cfg = bench.bench_config()
+    settings = bench.bench_settings(cfg)
+    n = cfg.n_frames - 1
+    systems = []
+    before = bench.captures()
+    torch.cuda.synchronize()
+    fast.fast_score_pyramid.launches = 0
+    t0 = time.perf_counter()
+    out = bench.run(cfg, settings, passes=1, device="cuda", systems=systems)
+    launches = fast.fast_score_pyramid.launches
+    seconds = time.perf_counter() - t0
+    system = systems[0]
+    tr = system.tracker
+    perf = tr._res.perf
+    lens = {k: len(v) for k, v in perf.items()}
+    failures = []
+    if "gate_failed" in out or not (out["rpe_t_m"] < RPE_T_GATE
+                                    and out["rpe_r_deg"] < RPE_R_GATE):
+        failures.append("camera RPE %s m / %s deg" % (out["rpe_t_m"],
+                                                       out["rpe_r_deg"]))
+    if not out["value"] > 0 or out["platform"] != "gpu":
+        failures.append("value %s on %s" % (out["value"], out["platform"]))
+    if launches != n:
+        failures.append("%d FAST launches for %d frames" % (launches, n))
+    if tr.lm_host_syncs:
+        failures.append("%d LM host reads" % tr.lm_host_syncs)
+    if len(system.map.lba_times) != 3:
+        failures.append("windows %s" % system.map.lba_times)
+    if set(lens.values()) != {n - 1} or len(lens) != 7:
+        failures.append("sections %s for %d chained frames" % (lens, n - 1))
+    if not math.isfinite(out["device_exec_ms_per_frame"]):
+        failures.append("no device-exec probe")
+    if failures:
+        raise AssertionError("bench phase: " + "; ".join(failures))
+    sections = {k: float(sorted(v)[len(v) // 2]) for k, v in perf.items()}
+    return dict(out=out, n=n, launches=launches, seconds=seconds,
+                ba_runs=tr.ba_runs, sections=sections,
+                captures={k: v - before[k]
+                          for k, v in bench.captures().items()})
+
+
 def generator_phase(seq, n_frames, what, t_gate, r_gate, record=(),
                     **over):
     """``n_frames`` of the generator straight into ``System(settings)`` on
@@ -2837,6 +2902,20 @@ def main():
         _print_ba_runs(c["ba_runs"], "chained phase, depth 2", smi)
         _memory("the chained phase")
 
+        bp = bench_phase()
+        print("bench phase: python -m sdpl_slam_torch.bench's run for one "
+              "pass (%d KITTI-scale frames in the chained loop, windows at "
+              "19 / 35 / 51, nothing injected) in %.1f s; FAST launches %d (1 "
+              "a frame), 0 LM host reads, captures %s; the device-exec probe "
+              "put the chained program back bit for bit and captured nothing"
+              % (bp["n"], bp["seconds"], bp["launches"], bp["captures"]))
+        print("  [%s] section medians over %d chained frames (ms): %s" % (
+            smi, bp["n"] - 1, ", ".join("%s %.3f" % kv
+                                        for kv in bp["sections"].items())))
+        _print_ba_runs(bp["ba_runs"], "bench phase", smi)
+        print("  bench line: " + json.dumps(bp["out"]))
+        _memory("the bench phase")
+
         t0 = time.perf_counter()
         kt = kitti_phase(seq, work)
         fm = sorted(kt["frame_ms"][1:-1])
@@ -2972,7 +3051,7 @@ def main():
         "route": "cuda",
         "source": "sdpl_slam_torch/csrc/fast_score.cu",
         "replaces": "sdpl_slam_tpu/ops/fast.py:119",
-        "launches": res["launches"],
+        "launches": res["launches"] + bp["launches"],
         "max_abs_err": k["max_err"],
         "ms": k["dev_ms"],
         "plain_ms": k["plain_ms"],

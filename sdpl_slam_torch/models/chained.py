@@ -42,6 +42,9 @@ side stream from the caller's ``next_gray`` / ``next_gray2``.
 
 from __future__ import annotations
 
+import os
+import time
+
 import numpy as np
 import torch
 
@@ -663,6 +666,10 @@ class ChainedDriver(ResidentDriver):
         self.prov = {}              # depth-3 composed side provenance
         self._det_pending = {}      # frame -> (needs, detector handle)
         self._hw = None
+        # per-section wall ms of each frame, section -> [ms, ...], when
+        # SDPL_CHAINED_PERF is set (the bench reads them); None otherwise
+        self.perf = {} if os.environ.get("SDPL_CHAINED_PERF") else None
+        self.last_bundle = None     # the bundle last loaded (the bench's probe)
 
     # -- mode transitions ----------------------------------------------
     def enter(self):
@@ -811,13 +818,19 @@ class ChainedDriver(ResidentDriver):
               f_id, n_images, stop_frame, line_detections=None,
               point_detections=None, next_gray=None, next_gray2=None):
         """One frame through the chained step; returns the most recently
-        drained camera pose (T_cw), until the last frame."""
-        import time
-
+        drained camera pose (T_cw), until the last frame.  With ``perf`` on,
+        the wall ms of each section are appended to it under the JAX
+        driver's names, each section ending where the JAX driver marks it."""
         from .tracking import _np_preprocess_depth
 
         tr, cfg = self.tr, self.tr.cfg
         t_all = time.perf_counter()
+        perf, last = self.perf, [t_all]
+
+        def mark(name):
+            now = time.perf_counter()
+            perf.setdefault(name, []).append((now - last[0]) * 1e3)
+            last[0] = now
         # the detectors of the next two frames first: their device work
         # runs on the side stream while the host samples this frame
         need = (cfg.use_sample_fea == 0 and point_detections is None,
@@ -833,11 +846,17 @@ class ChainedDriver(ResidentDriver):
         if self._lba_trigger(f_id - 1):
             self.drain_all()
             self._run_partial_ba(f_id - 1)
+        if perf is not None:
+            mark("dispatch_det")
 
         # ---- hard-lag drain: the base must be exactly the provenance
-        # generation of the live state ----
+        # generation of the live state.  The output comes home by the copy
+        # to_host_async started; there is no pull thread, so this is where
+        # the host waits for the card ----
         while len(self.pending) > self.LAG:
             self._drain_one()
+        if perf is not None:
+            mark("drain")
 
         # ---- host planes ----
         depth_pre = _np_preprocess_depth(
@@ -850,6 +869,8 @@ class ChainedDriver(ResidentDriver):
         self.planes[f_id] = (depth_pre, flow_np, mask_rec)
         for k in [k for k in self.planes if k < f_id - 3]:
             del self.planes[k]
+        if perf is not None:
+            mark("planes")
 
         # ---- families A and B, and the detector-independent selection ----
         obj_tmp = _native.select_object_points(
@@ -875,6 +896,8 @@ class ChainedDriver(ResidentDriver):
                                       self.prev_cands2)})
             else:
                 fams["B2"] = {k: np.zeros_like(v) for k, v in A.items()}
+        if perf is not None:
+            mark("families")
 
         # ---- this frame's detections and candidate selections (C) ----
         pend = self._det_pending.pop(f_id, None)
@@ -890,6 +913,8 @@ class ChainedDriver(ResidentDriver):
         stat_tmp, line_tmp, oline_tmp = tr._finish_selection(
             det, point_detections, line_detections, flow_np, *self._hw)
         olc_ok = _np_filt_line_ok(oline_tmp[0], depth_pre, flow_np, mask_rec)
+        if perf is not None:
+            mark("selection")
 
         # ---- pack, push, dispatch ----
         parts = {f"{fam}_{k}": v for fam, tabs in fams.items()
@@ -907,6 +932,9 @@ class ChainedDriver(ResidentDriver):
             for name, _ in bundle_spec(self.caps, self.depth)])
         self.prev_cands2 = self.prev_cands
         self.prev_cands = (stat_tmp, line_tmp, obj_tmp, oline_tmp)
+        self.last_bundle = buf
+        if perf is not None:
+            mark("families_pack")
 
         t0 = time.perf_counter()
         spec = chained_aux_spec(self.caps, *n_hypotheses(cfg))
@@ -922,6 +950,8 @@ class ChainedDriver(ResidentDriver):
         # frame's launch overwrites the output buffer
         host, ready = to_host_async(prog.out)
         timing[1] = (time.perf_counter() - t0) * 1e3
+        if perf is not None:
+            mark("dispatch_step")
         # slot 0: the host's prep (mask recovery, sampling, selections)
         timing[0] = (time.perf_counter() - t_all) * 1e3 - timing[1]
         self.pending.append(dict(

@@ -8,8 +8,9 @@ paths on the card, the dense-Schur window BA run twice, the fused BA
 programs against their eager plain versions, the host path's
 fused-frame and detector programs' graphs against their eager twins,
 without a synchronising call or an LM host read, and the chained step's
-and the non-joint frame's graphs against their eager twins, likewise,
-and the flagship entry on the card against the CPU.
+and the non-joint frame's graphs against their eager twins, likewise;
+the flagship entry on the card against the CPU; and the bench's
+device-exec probe leaving the chained program as it found it.
 Skipped where there is no card.  This file imports no JAX, so it runs on
 a machine without it:
 
@@ -827,3 +828,31 @@ def test_entry_on_the_card_matches_cpu(cuda):
     assert float(r_deg) < 0.03
     assert float((pose_c[:3, 3] - pose[:3, 3]).abs().max()) < 1e-4
     assert int((inl != inl_c).sum()) <= 6 and inl.sum() > 0.9 * inl.numel()
+
+
+@pytest.mark.gpu
+def test_bench_probe_restores_the_chained_program(cuda):
+    """``bench.run`` for one pass at 640x192 on the card (one window, at
+    frame 7): a headline under the gates, and the device-exec probe, run
+    again after it, leaves the chained program's carried state and output
+    as they were, bit for bit, and captures no program."""
+    from sdpl_slam_torch import bench
+    from sdpl_slam_torch.utils.synthetic import SynthConfig
+
+    cfg = SynthConfig(n_frames=10, n_objects=2, noise_flow=0.2)
+    settings = bench._settings(cfg)
+    settings.run_local_ba = True
+    settings.window_size, settings.overlap_size = 8, 2
+    systems = []
+    out = bench.run(cfg, settings, passes=1, device="cuda", warmup=2,
+                    systems=systems)
+    assert out["platform"] == "gpu" and out["value"] > 0
+    assert "gate_failed" not in out and out["device_exec_ms_per_frame"] > 0
+    assert len(systems[0].map.lba_times) == 1
+    prog = systems[0].tracker._res.prog
+    before = [t.clone() for t in prog.held() + [prog.out]]
+    captures = bench.captures()
+    assert bench._device_exec_probe(systems[0]) > 0
+    assert bench.captures() == captures
+    assert all(torch.equal(a, b)
+               for a, b in zip(before, prog.held() + [prog.out]))

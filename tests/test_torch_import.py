@@ -37,6 +37,7 @@ SLICE_MODULES = (
     "sdpl_slam_torch.utils.plotting", "sdpl_slam_torch.utils.traj_canvas",
     "sdpl_slam_torch.utils.synthetic", "sdpl_slam_torch.utils.convert",
     "sdpl_slam_torch.utils.cuda_build", "sdpl_slam_torch.utils.device",
+    "sdpl_slam_torch.bench",
 )
 
 
