@@ -654,6 +654,14 @@ class _RecordLoads:
         return patched()
 
 
+def _span_ms(spans, name, outside=None):
+    """The ms of every span called ``name``, in order; ``outside``: only
+    those whose parent is not called so."""
+    return [(s.end_ns - s.start_ns) * 1e-6 for s in spans if s.name == name
+            and (outside is None or s.parent < 0
+                 or spans[s.parent].name != outside)]
+
+
 def disk_phase(root, out_dir):
     """The port's main path on the card: the sequence under ``root``
     through the loader, the prefetcher and ``System(settings.yaml)`` with
@@ -669,6 +677,7 @@ def disk_phase(root, out_dir):
     from sdpl_slam_torch.models import frame_program as fp
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.utils import trace
 
     system = System(os.path.join(root, "settings.yaml"), verbose=False)
     if system.device.type != "cuda":
@@ -692,28 +701,35 @@ def disk_phase(root, out_dir):
     frame_ms, wait_ms = [], []
     pf = FramePrefetcher(load, N_FRAMES, lookahead=3)
     try:
-        frames = iter(pf)
-        loads = _RecordLoads()
-        for _ in range(N_FRAMES):
-            t0 = time.perf_counter()
-            i, frame = next(frames)
-            nxt, nxt2 = pf.peek(i + 1), pf.peek(i + 2)
-            wait_ms.append((time.perf_counter() - t0) * 1e3)
-            if i in LBA_FRAMES:
-                replays[i] = (copy.deepcopy(system), frame)
-            t0 = time.perf_counter()
-            with loads.frame(i if i in HOST_COMPARE_FRAMES else None):
-                pose = _track_loaded(system, loaded, i, frame, nxt, nxt2)
-            torch.cuda.synchronize()
-            frame_ms.append((time.perf_counter() - t0) * 1e3)
-            if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
-                raise AssertionError("frame %d: pose not a finite 4x4" % i)
-            if i == N_CPU_CHECK - 1:       # before a window rewrites them
-                first = [p.copy() for p in system.map.camera_poses]
-            if i == LBA_FRAMES[0] - 1:     # the device loops' reference
-                before_window = [p.copy() for p in system.map.camera_poses]
-                before_motions = [[x.copy() for x in row]
-                                  for row in system.map.rigid_motions]
+        # the span recorder times the synchronous detectors
+        with trace.enabled():
+            frames = iter(pf)
+            loads = _RecordLoads()
+            for _ in range(N_FRAMES):
+                t0 = time.perf_counter()
+                i, frame = next(frames)
+                nxt, nxt2 = pf.peek(i + 1), pf.peek(i + 2)
+                wait_ms.append((time.perf_counter() - t0) * 1e3)
+                if i in LBA_FRAMES:
+                    replays[i] = (copy.deepcopy(system), frame)
+                t0 = time.perf_counter()
+                with loads.frame(i if i in HOST_COMPARE_FRAMES
+                                 else None):
+                    pose = _track_loaded(system, loaded, i, frame, nxt,
+                                         nxt2)
+                torch.cuda.synchronize()
+                frame_ms.append((time.perf_counter() - t0) * 1e3)
+                if not np.all(np.isfinite(pose)) or pose.shape != (4, 4):
+                    raise AssertionError("frame %d: pose not a finite 4x4"
+                                         % i)
+                if i == N_CPU_CHECK - 1:   # before a window rewrites them
+                    first = [p.copy() for p in system.map.camera_poses]
+                if i == LBA_FRAMES[0] - 1:  # the device loops' reference
+                    before_window = [p.copy()
+                                     for p in system.map.camera_poses]
+                    before_motions = [[x.copy() for x in row]
+                                      for row in system.map.rigid_motions]
+            spans = trace.collect()["spans"]
     finally:
         pf.close()
     launches = fast.fast_score_pyramid.launches
@@ -727,7 +743,7 @@ def disk_phase(root, out_dir):
     if syncs:
         raise AssertionError("disk path: %d LM host reads (the frame "
                              "programs end their LMs on the card)" % syncs)
-    line_ms = system.tracker.line_detect_ms
+    line_ms = _span_ms(spans, "detector.lines")
     if len(line_ms) != N_FRAMES:
         raise AssertionError("the line detector ran %d times for %d frames"
                              % (len(line_ms), N_FRAMES))
@@ -753,7 +769,8 @@ def disk_phase(root, out_dir):
     return dict(system=system, loaded=loaded, replays=replays, first=first,
                 before_window=before_window, before_motions=before_motions,
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
-                line_ms=line_ms, n_lines=n_lines, launches=launches,
+                line_ms=line_ms, detect_ms=_span_ms(spans, "detector.run"),
+                n_lines=n_lines, launches=launches,
                 syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
                 decoder=png_decoder(), captures=captures, loads=loads.rows)
 
@@ -1459,11 +1476,14 @@ def pipelined_phase(root, loaded, host_map, host_before_window,
     import numpy as np
 
     from sdpl_slam_torch.models.system import System
+    from sdpl_slam_torch.utils import trace
 
     system = System(_loop_settings(root, pipelined_tracking=True),
                     verbose=False)
     frames = [loaded.frame(i) for i in range(N_RESIDENT)]
-    run = _loop_run(system, loaded, frames, hints=True)
+    with trace.enabled():          # the detectors' dispatches and waits
+        run = _loop_run(system, loaded, frames, hints=True)
+        spans = trace.collect()["spans"]
     rpe, n_obj, labels, ref = _check_loop(
         system, run, N_RESIDENT, "pipelined path", host_map,
         host_before_window)
@@ -1486,9 +1506,12 @@ def pipelined_phase(root, loaded, host_map, host_before_window,
     tr = system.tracker
     return dict(run, rpe=rpe, n_obj=n_obj, n_poses=len(ref),
                 n_motions=sum(len(x) for x in got_m),
-                ba_runs=tr.ba_runs, detect_ms=list(tr.detect_ms),
-                predispatch_ms=list(tr.predispatch_ms),
-                det_wait_ms=list(tr.det_wait_ms))
+                ba_runs=tr.ba_runs,
+                detect_ms=_span_ms(spans, "detector.run"),
+                predispatch_ms=_span_ms(spans, "detector.dispatch",
+                                        outside="detector.run"),
+                det_wait_ms=_span_ms(spans, "detector.take",
+                                     outside="detector.run"))
 
 
 def _abs_pose_worst(ref, got):
@@ -1646,6 +1669,7 @@ def generator_phase(seq, n_frames, what, t_gate, r_gate, record=(),
 
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.utils import trace
     from sdpl_slam_torch.utils.synthetic import slice_settings
 
     settings = slice_settings(seq.cfg)
@@ -1655,18 +1679,20 @@ def generator_phase(seq, n_frames, what, t_gate, r_gate, record=(),
     fast.fast_score_pyramid.launches = 0
     loads = _RecordLoads()
     ms = []
-    for t in range(n_frames):
-        f = seq.frame(t)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with loads.frame(t if t in record else None):
-            system.track_rgbd(f.gray, f.depth, f.flow, f.mask, f.gt_pose,
-                              f.obj_rows, t * 0.1, n_frames,
-                              line_detections=f.lines)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
+    with trace.enabled():              # the line detector's launches
+        for t in range(n_frames):
+            f = seq.frame(t)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with loads.frame(t if t in record else None):
+                system.track_rgbd(f.gray, f.depth, f.flow, f.mask,
+                                  f.gt_pose, f.obj_rows, t * 0.1, n_frames,
+                                  line_detections=f.lines)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        got = trace.collect()
     launches = fast.fast_score_pyramid.launches
-    if system.tracker.line_detect_ms:
+    if any(d.kind == "detector.lines" for d in got["device"]):
         raise AssertionError("%s: the line detector ran with lines injected"
                              % what)
     rpe, _ = _check_run(system, n_frames, launches, what, t_gate, r_gate,
@@ -2799,7 +2825,7 @@ def main():
               "pipelined: predispatch of the next frame median %.2f + wait "
               "for this frame's results median %.2f = %.2f (%d "
               "predispatches, %d waits, %d synchronous runs)" % (
-                  med(res["system"].tracker.detect_ms[1:N_RESIDENT]),
+                  med(res["detect_ms"][1:N_RESIDENT]),
                   med(pp["predispatch_ms"]), med(pp["det_wait_ms"]),
                   med(pp["predispatch_ms"]) + med(pp["det_wait_ms"]),
                   len(pp["predispatch_ms"]), len(pp["det_wait_ms"]),

@@ -219,21 +219,6 @@ def _non_lba_times(times, settings, n, warmup):
             if t not in lba_frames]
 
 
-@contextlib.contextmanager
-def _chained_perf():
-    """``SDPL_CHAINED_PERF`` set inside the block: chained drivers made
-    there time their sections (perf_counter only, no synchronisation)."""
-    prev = os.environ.get("SDPL_CHAINED_PERF")
-    os.environ["SDPL_CHAINED_PERF"] = "1"
-    try:
-        yield
-    finally:
-        if prev is None:
-            del os.environ["SDPL_CHAINED_PERF"]
-        else:
-            os.environ["SDPL_CHAINED_PERF"] = prev
-
-
 def captures() -> dict:
     """Programs captured in this process so far, by class."""
     from .models.chained import ChainedProgram
@@ -250,7 +235,7 @@ def run(cfg, settings, passes=N_PASSES, device="cuda", warmup=WARMUP,
     the last) with ``settings``, the device-exec probe on the median pass,
     and the output dict.  ``systems``, a list, receives each pass's
     ``System``."""
-    from .utils import metrics
+    from .utils import metrics, trace
     from .utils.synthetic import SynthSequence
 
     dev = torch.device(device)
@@ -261,7 +246,7 @@ def run(cfg, settings, passes=N_PASSES, device="cuda", warmup=WARMUP,
     for p in range(passes):
         _progress("tracking pass %d (%d frames)" % (p, n))
         before = captures()
-        with _chained_perf():
+        with trace.enabled():          # the chained sections' timers
             system, times = _run_tracking(seq, settings, n, warmup, dev)
         system.tracker.flush()        # drain pending device work
         med_ms = float(np.median(_non_lba_times(times, settings, n,

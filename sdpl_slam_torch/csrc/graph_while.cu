@@ -23,6 +23,15 @@
 // 1 = a loop on ``flags[i]`` opens (its body items follow), 2 = the
 // innermost open loop closes.
 //
+// Stamps (when the caller passes a ``stamps`` array, the port's span
+// recorder being on): every segment, every loop as a whole and every
+// loop body gets a slot, numbered in that order (a loop, then its body,
+// then the body's items), and is wrapped in two one-thread kernels that
+// read %globaltimer: the first notes the start, the second adds the
+// elapsed ns and one run to the slot.  ``stamps`` is an int64 array of
+// 3 rows of n_slots: ns, runs, starts.  Without it no node is added and
+// the graph is the one described above, node for node.
+//
 // Plain C entry points (bound with ctypes); every call returns the
 // cudaError_t it met, 0 on success.
 
@@ -37,13 +46,28 @@ __global__ void sdpl_set_condition(cudaGraphConditionalHandle handle,
     cudaGraphSetConditional(handle, *flag ? 1u : 0u);
 }
 
-static cudaError_t add_set(cudaGraphNode_t* node, cudaGraph_t graph,
-                           const cudaGraphNode_t* deps, size_t n_deps,
-                           cudaGraphConditionalHandle handle,
-                           const unsigned char* flag) {
+__device__ __forceinline__ unsigned long long global_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    return t;
+}
+
+__global__ void sdpl_stamp_begin(unsigned long long* start) {
+    *start = global_ns();
+}
+
+__global__ void sdpl_stamp_end(unsigned long long* ns,
+                               unsigned long long* runs,
+                               const unsigned long long* start) {
+    *ns += global_ns() - *start;
+    *runs += 1;
+}
+
+static cudaError_t add_kernel(cudaGraphNode_t* node, cudaGraph_t graph,
+                              const cudaGraphNode_t* deps, size_t n_deps,
+                              void* func, void** args) {
     cudaKernelNodeParams p = {};
-    void* args[2] = {&handle, &flag};
-    p.func = (void*)sdpl_set_condition;
+    p.func = func;
     p.gridDim = dim3(1, 1, 1);
     p.blockDim = dim3(1, 1, 1);
     p.sharedMemBytes = 0;
@@ -52,13 +76,48 @@ static cudaError_t add_set(cudaGraphNode_t* node, cudaGraph_t graph,
     return cudaGraphAddKernelNode(node, graph, deps, n_deps, &p);
 }
 
+static cudaError_t add_set(cudaGraphNode_t* node, cudaGraph_t graph,
+                           const cudaGraphNode_t* deps, size_t n_deps,
+                           cudaGraphConditionalHandle handle,
+                           const unsigned char* flag) {
+    void* args[2] = {&handle, &flag};
+    return add_kernel(node, graph, deps, n_deps, (void*)sdpl_set_condition,
+                      args);
+}
+
 struct Items {
     int n;
     const int* kinds;
     void* const* graphs;
     void* const* flags;
     int pos;                 // next item to read
+    unsigned long long* stamps;   // 3 x n_slots, or null: no stamps
+    int n_slots;
+    int slot;                // next slot to give
+    size_t added;            // nodes added
 };
+
+// A stamp kernel on ``slot`` after ``*prev`` (none if null); ``*prev``
+// becomes the new node.
+static cudaError_t add_stamp(cudaGraph_t graph, cudaGraphNode_t* prev,
+                             Items* it, int slot, bool end) {
+    unsigned long long* ns = it->stamps + slot;
+    unsigned long long* runs = ns + it->n_slots;
+    unsigned long long* start = runs + it->n_slots;
+    void* args_end[3] = {&ns, &runs, &start};
+    void* args_begin[1] = {&start};
+    cudaGraphNode_t node;
+    cudaError_t e = STEP("adding a stamp kernel",
+                         add_kernel(&node, graph, prev, *prev ? 1 : 0,
+                                    end ? (void*)sdpl_stamp_end
+                                        : (void*)sdpl_stamp_begin,
+                                    end ? args_end : args_begin));
+    if (e == cudaSuccess) {
+        *prev = node;
+        it->added += 1;
+    }
+    return e;
+}
 
 static cudaError_t add_while(cudaGraphNode_t* node, cudaGraph_t graph,
                              const cudaGraphNode_t* deps, size_t n_deps,
@@ -73,17 +132,25 @@ static cudaError_t add_items(cudaGraph_t graph, cudaGraphNode_t prev,
     while (it->pos < it->n && e == cudaSuccess) {
         int i = it->pos++;
         if (it->kinds[i] == 2) break;
+        int slot = it->stamps ? it->slot++ : -1;
+        if (slot >= 0) {
+            e = add_stamp(graph, &prev, it, slot, false);
+            if (e != cudaSuccess) break;
+        }
         cudaGraphNode_t node;
         size_t n_deps = prev ? 1 : 0;
         if (it->kinds[i] == 0) {
             e = STEP("adding a segment",
                      cudaGraphAddChildGraphNode(&node, graph, &prev, n_deps,
                                                 (cudaGraph_t)it->graphs[i]));
+            if (e == cudaSuccess) it->added += 1;
         } else {
             e = add_while(&node, graph, &prev, n_deps,
                           (const unsigned char*)it->flags[i], it);
         }
         prev = node;
+        if (slot >= 0 && e == cudaSuccess)
+            e = add_stamp(graph, &prev, it, slot, true);
     }
     *last = prev;
     return e;
@@ -113,25 +180,43 @@ static cudaError_t add_while(cudaGraphNode_t* node, cudaGraph_t graph,
     e = cudaGraphAddNode(node, graph, &set0, 1, &cp);
 #endif
     if (e != cudaSuccess) return e;
+    it->added += 2;                       // set0 and the WHILE node
     cudaGraph_t body = cp.conditional.phGraph_out[0];
-    cudaGraphNode_t last, set1;
-    e = add_items(body, nullptr, it, &last);
+    cudaGraphNode_t first = nullptr, last, set1;
+    int slot = it->stamps ? it->slot++ : -1;
+    if (slot >= 0) {
+        e = add_stamp(body, &first, it, slot, false);
+        if (e != cudaSuccess) return e;
+    }
+    e = add_items(body, first, it, &last);
     if (e != cudaSuccess) return e;
-    return STEP("adding a condition kernel",
-                add_set(&set1, body, &last, last ? 1 : 0, handle, flag));
+    if (slot >= 0) {
+        e = add_stamp(body, &last, it, slot, true);
+        if (e != cudaSuccess) return e;
+    }
+    e = STEP("adding a condition kernel",
+             add_set(&set1, body, &last, last ? 1 : 0, handle, flag));
+    if (e == cudaSuccess) it->added += 1;
+    return e;
 }
 
 extern "C" {
 
 // Build and instantiate the graph of the ``n`` flattened items (see the
-// top of this file).  The graphs are cloned into the new one (the caller
-// keeps its own).
+// top of this file), with stamp nodes where ``stamps`` is not null.  The
+// graphs are cloned into the new one (the caller keeps its own);
+// ``*added_out`` is the number of nodes the build added around them.
 int sdpl_graph_build(int n, const int* kinds, void* const* graphs,
-                     void* const* flags, void** graph_out, void** exec_out) {
+                     void* const* flags, void* stamps, void** graph_out,
+                     void** exec_out, size_t* added_out) {
     cudaGraph_t g;
     cudaError_t e = STEP("cudaGraphCreate", cudaGraphCreate(&g, 0));
     if (e != cudaSuccess) return (int)e;
-    Items it = {n, kinds, graphs, flags, 0};
+    int n_slots = 0;
+    for (int i = 0; i < n; ++i)
+        n_slots += kinds[i] == 0 ? 1 : kinds[i] == 1 ? 2 : 0;
+    Items it = {n, kinds, graphs, flags, 0,
+                (unsigned long long*)stamps, n_slots, 0, 0};
     cudaGraphNode_t last;
     e = add_items(g, nullptr, &it, &last);
     if (e == cudaSuccess && it.pos != n)
@@ -145,6 +230,7 @@ int sdpl_graph_build(int n, const int* kinds, void* const* graphs,
     }
     *graph_out = (void*)g;
     *exec_out = (void*)exec;
+    *added_out = it.added;
     return 0;
 }
 

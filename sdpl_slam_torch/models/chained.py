@@ -42,7 +42,6 @@ side stream from the caller's ``next_gray`` / ``next_gray2``.
 
 from __future__ import annotations
 
-import os
 import time
 
 import numpy as np
@@ -50,6 +49,7 @@ import torch
 
 from ..io import native as _native
 from ..ops.geometry import Intrinsics
+from ..utils import trace
 from ..utils.device import to_host_async
 from . import frame_host as fh
 from .resident import (ResidentDriver, ResidentProgram, StageInputs, _i32,
@@ -666,9 +666,9 @@ class ChainedDriver(ResidentDriver):
         self.prov = {}              # depth-3 composed side provenance
         self._det_pending = {}      # frame -> (needs, detector handle)
         self._hw = None
-        # per-section wall ms of each frame, section -> [ms, ...], when
-        # SDPL_CHAINED_PERF is set (the bench reads them); None otherwise
-        self.perf = {} if os.environ.get("SDPL_CHAINED_PERF") else None
+        # per-section wall ms of each frame, section -> [ms, ...], filled
+        # from the chained.* sections while the span recorder is on
+        self.perf = {}
         self.last_bundle = None     # the bundle last loaded (the bench's probe)
 
     # -- mode transitions ----------------------------------------------
@@ -818,140 +818,134 @@ class ChainedDriver(ResidentDriver):
               f_id, n_images, stop_frame, line_detections=None,
               point_detections=None, next_gray=None, next_gray2=None):
         """One frame through the chained step; returns the most recently
-        drained camera pose (T_cw), until the last frame.  With ``perf`` on,
-        the wall ms of each section are appended to it under the JAX
-        driver's names, each section ending where the JAX driver marks it."""
+        drained camera pose (T_cw), until the last frame.  Its seven
+        sections are the span recorder's ``chained.*`` sections, each
+        ending where the JAX driver marks it; while the recorder is on,
+        their wall ms are appended to ``perf`` under the JAX driver's
+        names."""
         from .tracking import _np_preprocess_depth
 
-        tr, cfg = self.tr, self.tr.cfg
+        tr, cfg, perf = self.tr, self.tr.cfg, self.perf
         t_all = time.perf_counter()
-        perf, last = self.perf, [t_all]
+        with trace.section("chained.dispatch_det", perf):
+            # the detectors of the next two frames first: their device
+            # work runs on the side stream while the host samples this
+            # frame
+            need = (cfg.use_sample_fea == 0 and point_detections is None,
+                    line_detections is None and cfg.use_lines)
+            if any(need):
+                for fr_, g in ((f_id + 1, next_gray), (f_id + 2, next_gray2)):
+                    if g is not None and fr_ not in self._det_pending:
+                        self._det_pending[fr_] = (
+                            need, tr._dispatch_detectors(g, *need))
 
-        def mark(name):
-            now = time.perf_counter()
-            perf.setdefault(name, []).append((now - last[0]) * 1e3)
-            last[0] = now
-        # the detectors of the next two frames first: their device work
-        # runs on the side stream while the host samples this frame
-        need = (cfg.use_sample_fea == 0 and point_detections is None,
-                line_detections is None and cfg.use_lines)
-        if any(need):
-            for fr_, g in ((f_id + 1, next_gray), (f_id + 2, next_gray2)):
-                if g is not None and fr_ not in self._det_pending:
-                    self._det_pending[fr_] = (
-                        need, tr._dispatch_detectors(g, *need))
-
-        # the previous frame's window BA completes before this dispatch:
-        # the refined pose feeds this frame's solve
-        if self._lba_trigger(f_id - 1):
-            self.drain_all()
-            self._run_partial_ba(f_id - 1)
-        if perf is not None:
-            mark("dispatch_det")
+            # the previous frame's window BA completes before this
+            # dispatch: the refined pose feeds this frame's solve
+            if self._lba_trigger(f_id - 1):
+                self.drain_all()
+                self._run_partial_ba(f_id - 1)
 
         # ---- hard-lag drain: the base must be exactly the provenance
         # generation of the live state.  The output comes home by the copy
         # to_host_async started; there is no pull thread, so this is where
         # the host waits for the card ----
-        while len(self.pending) > self.LAG:
-            self._drain_one()
-        if perf is not None:
-            mark("drain")
+        with trace.section("chained.drain", perf):
+            while len(self.pending) > self.LAG:
+                self._drain_one()
 
         # ---- host planes ----
-        depth_pre = _np_preprocess_depth(
-            np.asarray(depth_raw, np.float32), cfg.choose_data,
-            cfg.depth_map_factor, cfg.bf)
-        flow_np = np.ascontiguousarray(flow, dtype=np.float32)
-        mask_np = np.asarray(mask, np.int32)
-        self._roll_base_to(f_id)
-        mask_rec = self._host_mask_recovery(mask_np, f_id)
-        self.planes[f_id] = (depth_pre, flow_np, mask_rec)
-        for k in [k for k in self.planes if k < f_id - 3]:
-            del self.planes[k]
-        if perf is not None:
-            mark("planes")
+        with trace.section("chained.planes", perf):
+            depth_pre = _np_preprocess_depth(
+                np.asarray(depth_raw, np.float32), cfg.choose_data,
+                cfg.depth_map_factor, cfg.bf)
+            flow_np = np.ascontiguousarray(flow, dtype=np.float32)
+            mask_np = np.asarray(mask, np.int32)
+            self._roll_base_to(f_id)
+            mask_rec = self._host_mask_recovery(mask_np, f_id)
+            self.planes[f_id] = (depth_pre, flow_np, mask_rec)
+            for k in [k for k in self.planes if k < f_id - 3]:
+                del self.planes[k]
 
         # ---- families A and B, and the detector-independent selection ----
-        obj_tmp = _native.select_object_points(
-            depth_pre, flow_np, mask_rec, cfg.th_depth_obj, tr.NO)
-        if obj_tmp is None:
-            obj_tmp = fh.select_object_points(
+        with trace.section("chained.families", perf):
+            obj_tmp = _native.select_object_points(
                 depth_pre, flow_np, mask_rec, cfg.th_depth_obj, tr.NO)
-        planes = (depth_pre, flow_np, mask_rec)
-        A = _sample_families(*planes, self.base_pos)
-        B = (_sample_families(*planes, dict(zip(
-                ("s", "l", "o", "ol"), (c[3] for c in self.prev_cands))))
-             if self.prev_cands is not None
-             else {k: np.zeros_like(v) for k, v in A.items()})
-        fams = dict(A=A, B=B)
-        if self.depth >= 3:
-            if self.prev_cands2 is not None:
-                # candidates of frame t-2: their correspondences live in
-                # t-1; rolled one flow plane forward to sample this frame
-                flow_prev = self.planes[f_id - 1][1]
-                fams["B2"] = _sample_families(*planes, {
-                    fam: _rolled_positions(c[3], flow_prev, _STRIDE[fam])
-                    for fam, c in zip(("s", "l", "o", "ol"),
-                                      self.prev_cands2)})
-            else:
-                fams["B2"] = {k: np.zeros_like(v) for k, v in A.items()}
-        if perf is not None:
-            mark("families")
+            if obj_tmp is None:
+                obj_tmp = fh.select_object_points(
+                    depth_pre, flow_np, mask_rec, cfg.th_depth_obj, tr.NO)
+            planes = (depth_pre, flow_np, mask_rec)
+            A = _sample_families(*planes, self.base_pos)
+            B = (_sample_families(*planes, dict(zip(
+                    ("s", "l", "o", "ol"),
+                    (c[3] for c in self.prev_cands))))
+                 if self.prev_cands is not None
+                 else {k: np.zeros_like(v) for k, v in A.items()})
+            fams = dict(A=A, B=B)
+            if self.depth >= 3:
+                if self.prev_cands2 is not None:
+                    # candidates of frame t-2: their correspondences live
+                    # in t-1; rolled one flow plane forward to sample this
+                    # frame
+                    flow_prev = self.planes[f_id - 1][1]
+                    fams["B2"] = _sample_families(*planes, {
+                        fam: _rolled_positions(c[3], flow_prev, _STRIDE[fam])
+                        for fam, c in zip(("s", "l", "o", "ol"),
+                                          self.prev_cands2)})
+                else:
+                    fams["B2"] = {k: np.zeros_like(v) for k, v in A.items()}
 
         # ---- this frame's detections and candidate selections (C) ----
-        pend = self._det_pending.pop(f_id, None)
-        for k in [k for k in self._det_pending if k <= f_id]:
-            del self._det_pending[k]
-        if pend is not None and pend[0] == need:
-            det, lines = tr._take_detections(pend[1])
-        else:
-            det, lines = tr._detect(gray, *need)
-        if need[1]:
-            line_detections = lines
-        tr.depth_np, tr.mask_np = depth_pre, mask_rec
-        stat_tmp, line_tmp, oline_tmp = tr._finish_selection(
-            det, point_detections, line_detections, flow_np, *self._hw)
-        olc_ok = _np_filt_line_ok(oline_tmp[0], depth_pre, flow_np, mask_rec)
-        if perf is not None:
-            mark("selection")
+        with trace.section("chained.selection", perf):
+            pend = self._det_pending.pop(f_id, None)
+            for k in [k for k in self._det_pending if k <= f_id]:
+                del self._det_pending[k]
+            if pend is not None and pend[0] == need:
+                det, lines = tr._take_detections(pend[1])
+            else:
+                det, lines = tr._detect(gray, *need)
+            if need[1]:
+                line_detections = lines
+            tr.depth_np, tr.mask_np = depth_pre, mask_rec
+            stat_tmp, line_tmp, oline_tmp = tr._finish_selection(
+                det, point_detections, line_detections, flow_np, *self._hw)
+            olc_ok = _np_filt_line_ok(oline_tmp[0], depth_pre, flow_np,
+                                      mask_rec)
 
         # ---- pack, push, dispatch ----
-        parts = {f"{fam}_{k}": v for fam, tabs in fams.items()
-                 for k, v in tabs.items()}
-        for pre, tup in (("c_s", stat_tmp), ("c_l", line_tmp)):
-            for suf, v in zip(("uv", "d", "f", "c", "v"), tup):
-                parts[f"{pre}_{suf}"] = v
-        for pre, tup in (("c_o", obj_tmp), ("c_ol", oline_tmp)):
-            for suf, v in zip(("uv", "d", "f", "c", "s", "v"), tup):
-                parts[f"{pre}_{suf}"] = v
-        parts["olc_ok"] = olc_ok
-        parts["f00"] = flow_np[0, 0]
-        buf = np.concatenate([
-            np.ravel(np.asarray(parts[name])).astype(np.float32)
-            for name, _ in bundle_spec(self.caps, self.depth)])
-        self.prev_cands2 = self.prev_cands
-        self.prev_cands = (stat_tmp, line_tmp, obj_tmp, oline_tmp)
-        self.last_bundle = buf
-        if perf is not None:
-            mark("families_pack")
+        with trace.section("chained.families_pack", perf):
+            parts = {f"{fam}_{k}": v for fam, tabs in fams.items()
+                     for k, v in tabs.items()}
+            for pre, tup in (("c_s", stat_tmp), ("c_l", line_tmp)):
+                for suf, v in zip(("uv", "d", "f", "c", "v"), tup):
+                    parts[f"{pre}_{suf}"] = v
+            for pre, tup in (("c_o", obj_tmp), ("c_ol", oline_tmp)):
+                for suf, v in zip(("uv", "d", "f", "c", "s", "v"), tup):
+                    parts[f"{pre}_{suf}"] = v
+            parts["olc_ok"] = olc_ok
+            parts["f00"] = flow_np[0, 0]
+            buf = np.concatenate([
+                np.ravel(np.asarray(parts[name])).astype(np.float32)
+                for name, _ in bundle_spec(self.caps, self.depth)])
+            self.prev_cands2 = self.prev_cands
+            self.prev_cands = (stat_tmp, line_tmp, obj_tmp, oline_tmp)
+            self.last_bundle = buf
 
-        t0 = time.perf_counter()
-        spec = chained_aux_spec(self.caps, *n_hypotheses(cfg))
-        aux = np.zeros(sum(_numel(shape) for _, shape in spec), np.float32)
-        self._labels_and_draws(_unpack_aux(aux, spec), gt_objs, f_id)
-        arrays = dict(bundle=buf, aux=aux)
-        prog = self._step_program({k: (a.shape, torch.float32)
-                                   for k, a in arrays.items()})
-        prog.load(arrays)
-        with torch.profiler.record_function("chained_step"):
-            tr.lm_host_syncs += prog()
-        # on the stream of the launch: the copy is taken before the next
-        # frame's launch overwrites the output buffer
-        host, ready = to_host_async(prog.out)
-        timing[1] = (time.perf_counter() - t0) * 1e3
-        if perf is not None:
-            mark("dispatch_step")
+        with trace.section("chained.dispatch_step", perf):
+            t0 = time.perf_counter()
+            spec = chained_aux_spec(self.caps, *n_hypotheses(cfg))
+            aux = np.zeros(sum(_numel(shape) for _, shape in spec),
+                           np.float32)
+            self._labels_and_draws(_unpack_aux(aux, spec), gt_objs, f_id)
+            arrays = dict(bundle=buf, aux=aux)
+            prog = self._step_program({k: (a.shape, torch.float32)
+                                       for k, a in arrays.items()})
+            prog.load(arrays)
+            with trace.span("chained_step"):
+                tr.lm_host_syncs += prog()
+            # on the stream of the launch: the copy is taken before the
+            # next frame's launch overwrites the output buffer
+            host, ready = to_host_async(prog.out)
+            timing[1] = (time.perf_counter() - t0) * 1e3
         # slot 0: the host's prep (mask recovery, sampling, selections)
         timing[0] = (time.perf_counter() - t_all) * 1e3 - timing[1]
         self.pending.append(dict(

@@ -333,12 +333,13 @@ class FrameProgram:
     default the device's capture stream); every call then
     launches the stages' graphs on the current stream and reads nothing on
     the host.  ``captures`` counts the programs of the class captured in
-    this process."""
+    this process.  ``kinds`` names each stage's graph (its launches and
+    stamped items in the span recorder): ``frame`` by default."""
 
     captures = 0
 
     def __init__(self, stages, inputs: dict, sizes, device, graph=False,
-                 stream=None):
+                 stream=None, kinds=None):
         dev = torch.device(device)
         if graph and dev.type != "cuda":
             raise RuntimeError("%s(graph=True) needs a CUDA device, got %s"
@@ -346,6 +347,7 @@ class FrameProgram:
         if graph and stream is None:
             stream = capture_stream(dev)
         self.stages, self.sizes = tuple(stages), tuple(sizes)
+        self.kinds = tuple(kinds or ["frame"] * len(self.stages))
         self.device, self.graph, self._stream = dev, graph, stream
         self.inp = {k: torch.zeros(shape, dtype=dt, device=dev)
                     for k, (shape, dt) in inputs.items()}
@@ -383,7 +385,7 @@ class FrameProgram:
         return type(self)(
             self.stages,
             {k: (tuple(t.shape), t.dtype) for k, t in self.inp.items()},
-            self.sizes, self.device)
+            self.sizes, self.device, kinds=self.kinds)
 
     def _capture(self):
         dev = self.device
@@ -406,7 +408,7 @@ class FrameProgram:
             with torch.cuda.stream(side):
                 with rec, loop_runner(rec.loop):
                     self._eager(i)
-            graphs.append(rec.stitch())
+            graphs.append(rec.stitch(self.kinds[i]))
         torch.cuda.synchronize(dev)
         self._graphs = graphs
         self.node_counts = [g.node_counts() for g in graphs]
@@ -529,13 +531,15 @@ def detector_program(shape, dtype: np.dtype, fast_cfg, line_cfg,
            str(dev))
     prog = _DETECT_PROGRAMS.get(key)
     if prog is None:
-        stages, sizes = [], []
+        stages, sizes, kinds = [], [], []
         if fast_cfg is not None:
             stages.append(_fast_stage(fast_cfg))
             sizes.append(3 * fast_ops.n_keypoints(h, w, fast_cfg))
+            kinds.append("detector.fast")
         if line_cfg is not None:
             stages.append(_line_stage(line_cfg))
             sizes.append(5 * line_ops.n_segments(h, w, line_cfg))
+            kinds.append("detector.lines")
         cuda = dev.type == "cuda"
         img_dtype = torch.from_numpy(np.zeros(0, dtype)).dtype
         stream = detector_stream(dev) if cuda else None
@@ -543,5 +547,5 @@ def detector_program(shape, dtype: np.dtype, fast_cfg, line_cfg,
         with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
             prog = _DETECT_PROGRAMS[key] = DetectorProgram(
                 stages, {"img": (tuple(shape), img_dtype)}, sizes, dev,
-                graph=cuda, stream=stream)
+                graph=cuda, stream=stream, kinds=kinds)
     return prog

@@ -53,7 +53,7 @@ from ..ops import lines as line_ops
 from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import frame_solvers as fs
-from ..utils import metrics
+from ..utils import metrics, trace
 from ..utils.device import copy_in, host_array, scatter_add, to_host_async
 from . import frame as fr
 
@@ -1260,7 +1260,7 @@ class ResidentProgram:
         with torch.cuda.stream(side):
             with rec, loop_runner(rec.loop):
                 self._step()
-        self._graph = rec.stitch()
+        self._graph = rec.stitch("step")
         torch.cuda.synchronize(self.device)
         self.node_counts = self._graph.node_counts()
         self.capture_s = time.perf_counter() - t0
@@ -1600,7 +1600,7 @@ class ResidentDriver:
         prog = self._program(modes, {k: (a.shape, _torch_dtype(a))
                                      for k, a in arrays.items()})
         prog.load(arrays)
-        with torch.profiler.record_function("resident_step"):
+        with trace.span("resident_step"):
             tr.lm_host_syncs += prog()
         host, ready = to_host_async(prog.out)
         timing[1] = (time.perf_counter() - t0) * 1e3

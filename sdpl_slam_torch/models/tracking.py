@@ -64,6 +64,7 @@ from ..ops.geometry import Intrinsics
 from ..solvers import ba_builder
 from ..solvers import batch_ba as bb
 from ..solvers import schur_ba
+from ..utils import trace
 from ..utils.config import KITTI, OMD, Settings
 from ..utils.device import checked_device, host_array, to_host_async
 from . import frame as fr
@@ -241,9 +242,6 @@ class Tracking:
         self._oline_label = np.full(self.NLO, -2, np.int32)
         self._grid_cache = None
         self.lm_host_syncs = 0                           # LM loop-exit reads
-        # host-clock ms of the line detector alone (between two device
-        # synchronisations), one entry per frame that ran it
-        self.line_detect_ms: List[float] = []
         # one dict per batch BA run: kind ("local" / "global"), frame, wall
         # ms, LM and CG iterations, host reads (batch_ba.run_ba's counters)
         self.ba_runs: List[dict] = []
@@ -255,24 +253,21 @@ class Tracking:
         self._deferred_push: Optional[tuple] = None
         self._pending_det: Optional[tuple] = None
         self._next_gray: Optional[np.ndarray] = None
-        # host ms of the detectors on the calling thread: each run brought
-        # home at once (dispatch to results), each predispatch of the next
-        # frame's, and each wait for a predispatched frame's results
-        self.detect_ms: List[float] = []
-        self.predispatch_ms: List[float] = []
-        self.det_wait_ms: List[float] = []
 
     def flush(self) -> None:
         """Finish the frame in flight (pipelined: pull, renewal, map push,
         BA triggers) and drain the device loops' map stream, so the map
         holds every tracked frame.  Idempotent; ``System`` calls it before
-        any reader of the map."""
+        any reader of the map.  With the span recorder on, the card's clock
+        is anchored to the host's again here (``trace.anchor``)."""
         if self._res is not None:
             self._res.drain_all()
         self._run_deferred_push()     # always older than the frame in flight
         if self._inflight is not None:
             fl, self._inflight = self._inflight, None
             self._track_finish(fl)
+        if self.device.type == "cuda":
+            trace.anchor()
 
     def sync_host_state(self) -> None:
         """Write the device-resident state back to the host ``last`` dict
@@ -424,7 +419,6 @@ class Tracking:
         if (pend is not None and pend[0] == self.f_id
                 and pend[1] == (need_fast, need_lines)):
             det, detected_lines = self._take_detections(pend[2])
-            self.det_wait_ms.append((time.perf_counter() - t0) * 1e3)
         else:
             det, detected_lines = self._detect(gray, need_fast, need_lines)
         if need_lines:
@@ -494,40 +488,43 @@ class Tracking:
         of the image's shape and the configs (``frame_program.
         detector_program``; on the card two graph launches on a side
         stream, FAST and the line detector), without waiting for it.  -> a
-        handle for :meth:`_take_detections`, or None.  ``timed``: the line
-        detector is timed on its own between two synchronisations of that
-        stream (``line_detect_ms``)."""
+        handle for :meth:`_take_detections`, or None.  A
+        ``detector.dispatch`` span.  ``timed`` and the span recorder on:
+        the line stage is a ``detector.lines`` span of its own, between
+        two synchronisations of that stream."""
         if not (need_fast or need_lines):
             return None
-        gray = np.ascontiguousarray(gray)
-        prog = detector_program(
-            gray.shape, gray.dtype, self._fast_cfg() if need_fast else None,
-            self._line_cfg() if need_lines else None, self.device)
-        cuda = self.device.type == "cuda"
-        stream = detector_stream(self.device) if cuda else None
-        # the program reads nothing the default stream writes (its buffers
-        # are made and loaded on its own stream), so it does not wait for
-        # the frame in flight: with ``pipelined_tracking`` the next frame's
-        # detectors run beside this frame's solve
-        with torch.cuda.stream(stream) if cuda else contextlib.nullcontext():
-            prog.load({"img": gray})
-            if need_fast:
-                prog.run_stage(0)
-            if need_lines:
-                if timed and cuda:
-                    stream.synchronize()
-                t0 = time.perf_counter()
-                prog.run_stage(len(prog.stages) - 1)
-                if timed:
-                    if cuda:
+        with trace.span("detector.dispatch"):
+            gray = np.ascontiguousarray(gray)
+            prog = detector_program(
+                gray.shape, gray.dtype,
+                self._fast_cfg() if need_fast else None,
+                self._line_cfg() if need_lines else None, self.device)
+            cuda = self.device.type == "cuda"
+            stream = detector_stream(self.device) if cuda else None
+            # the program reads nothing the default stream writes (its
+            # buffers are made and loaded on its own stream), so it does
+            # not wait for the frame in flight: with ``pipelined_tracking``
+            # the next frame's detectors run beside this frame's solve
+            with (torch.cuda.stream(stream) if cuda
+                  else contextlib.nullcontext()):
+                prog.load({"img": gray})
+                if need_fast:
+                    prog.run_stage(0)
+                if need_lines:
+                    timed = timed and trace.ON
+                    if timed and cuda:
                         stream.synchronize()
-                    self.line_detect_ms.append(
-                        (time.perf_counter() - t0) * 1e3)
-            # on the stream of the launch: the copy is taken before the
-            # next frame's launch overwrites the output buffer
-            host, ready = to_host_async(prog.out)
-        n_fast = prog.sizes[0] // 3 if need_fast else 0
-        return need_fast, need_lines, n_fast, host, ready
+                    with (trace.span("detector.lines") if timed
+                          else contextlib.nullcontext()):
+                        prog.run_stage(len(prog.stages) - 1)
+                        if timed and cuda:
+                            stream.synchronize()
+                # on the stream of the launch: the copy is taken before the
+                # next frame's launch overwrites the output buffer
+                host, ready = to_host_async(prog.out)
+            n_fast = prog.sizes[0] // 3 if need_fast else 0
+            return need_fast, need_lines, n_fast, host, ready
 
     @staticmethod
     def _take_detections(handle):
@@ -536,7 +533,8 @@ class Tracking:
         if handle is None:
             return None, None
         need_fast, need_lines, n, host, ready = handle
-        flat = host_array(host, ready)
+        with trace.span("detector.take"):
+            flat = host_array(host, ready)
         det = lines = None
         if need_fast:
             fast = flat[:3 * n].reshape(n, 3)
@@ -550,19 +548,20 @@ class Tracking:
         return det, lines
 
     def _detect(self, gray: np.ndarray, need_fast: bool, need_lines: bool):
-        """The detectors this frame needs, run and brought home now."""
-        t0 = time.perf_counter()
-        out = self._take_detections(
-            self._dispatch_detectors(gray, need_fast, need_lines, timed=True))
-        if need_fast or need_lines:
-            self.detect_ms.append((time.perf_counter() - t0) * 1e3)
-        return out
+        """The detectors this frame needs, run and brought home now: a
+        ``detector.run`` span, counted in ``detector.sync_detects``."""
+        if not (need_fast or need_lines):
+            return None, None
+        trace.count("detector.sync_detects")
+        with trace.span("detector.run"):
+            return self._take_detections(self._dispatch_detectors(
+                gray, need_fast, need_lines, timed=True))
 
     def _predispatch_next_detectors(self, need_fast: bool, need_lines: bool):
         """With ``pipelined_tracking`` and the next frame's image given,
         dispatch that frame's detectors now: their device work overlaps the
         rest of this frame, and the next call takes them where its needs
-        match.  ``predispatch_ms`` logs the host ms of the dispatch."""
+        match."""
         g, self._next_gray = self._next_gray, None
         cfg = self.cfg
         if ((cfg.resident_tracking or cfg.chained_tracking)
@@ -570,11 +569,9 @@ class Tracking:
             return            # the next frame runs in a device loop
         if g is None or not (need_fast or need_lines):
             return
-        t0 = time.perf_counter()
         self._pending_det = (self.f_id + 1, (need_fast, need_lines),
                              self._dispatch_detectors(g, need_fast,
                                                       need_lines))
-        self.predispatch_ms.append((time.perf_counter() - t0) * 1e3)
 
     def _finish_selection(self, det, point_detections,
                           line_detections, flow_np, h, w):
@@ -846,12 +843,12 @@ class Tracking:
         The entry's step ("schur" or "cg") is read off the two LM loops'
         counters; ``captures`` counts the fused programs it captured (on
         the card, the first call of each bucket set).  The run is a
-        ``<kind>_ba`` profiler range."""
+        ``<kind>_ba`` span."""
         rb, rs = bb.run_ba, schur_ba.run_ba_schur
         before = (rb.iterations, rb.cg_iterations, rb.host_syncs,
                   rs.iterations, rs.host_syncs, bb.BAProgram.captures)
         t0 = time.perf_counter()
-        with torch.profiler.record_function(kind + "_ba"):
+        with trace.span(kind + "_ba"):
             entry(self.map, self.K, *args, self.cfg,
                   use_lines=self.cfg.use_lines, device=self.device)
         ms = (time.perf_counter() - t0) * 1e3

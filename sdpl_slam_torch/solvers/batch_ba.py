@@ -563,7 +563,7 @@ def pcg_run(s: PCGState) -> PCGState:
     """The CG loop: handed to the active ``loop_runner`` (a WHILE node in
     a captured program), else on the host, reading the exit every
     ``CG_CHECK_EVERY`` iterations (counted in ``run_ba.host_syncs``)."""
-    if run_loop(lambda: pcg_iteration(s), s.active):
+    if run_loop(lambda: pcg_iteration(s), s.active, "ba.pcg"):
         return s
     for i in range(s.cg_iters):
         if i and i % CG_CHECK_EVERY == 0:
@@ -678,7 +678,7 @@ def lm_run(s: LMLoop, counters=None):
     iteration (the stop flag and the step's CG iterations), counted on
     ``counters`` (``run_ba`` or ``schur_ba.run_ba_schur``); returns the
     iterations run."""
-    if run_loop(lambda: lm_iteration(s), s.active):
+    if run_loop(lambda: lm_iteration(s), s.active, "ba.lm"):
         return None
     it = 0
     while it < s.max_iters:
@@ -810,7 +810,7 @@ class BAProgram:
                 self._run()
         torch.cuda.synchronize(dev)
         t2 = time.perf_counter()
-        self._graph = rec.stitch()
+        self._graph = rec.stitch("ba")
         self.node_counts = self._graph.node_counts()
         self.warmup_s, self.capture_s = t1 - t0, t2 - t1
         self.stitch_s = time.perf_counter() - t2

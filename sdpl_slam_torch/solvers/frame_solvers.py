@@ -255,7 +255,7 @@ def solve_pose_only(
             it.add_(1)
             more.copy_(it < iters)
 
-        if not run_loop(body, more):
+        if not run_loop(body, more, "pose_only.round"):
             for _ in range(iters):          # a fixed count: nothing to read
                 body()
         return T, cost
@@ -511,7 +511,7 @@ def lm_iteration(s: LMState) -> None:
 def lm_run(s: LMState) -> LMState:
     """The loop: on the host (``while active_any``, one read an
     iteration and one at the exit) unless a ``loop_runner`` takes it."""
-    if run_loop(lambda: lm_iteration(s), s.active_any):
+    if run_loop(lambda: lm_iteration(s), s.active_any, "flow_pose.lm"):
         return s
     while True:
         s.host_syncs += 1

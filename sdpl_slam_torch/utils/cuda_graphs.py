@@ -23,6 +23,16 @@ back.
 Counters that the captured code bumps on the host (kernel launch counts)
 move at capture, not at replay: :class:`StitchedGraph` records what each
 counter gained during the capture and adds that at every launch.
+
+Every launch is a ``graph.launch`` span of the span recorder
+(``utils/trace.py``) inside a device span.  While the recorder is on, a
+graph with a loop stitched then also times itself on the card: one-thread
+stamp nodes around each segment, each loop as a whole and each loop body
+add the item's nanoseconds and runs into a device array.  A graph without
+a loop is one straight line that its device span times whole, and gets
+no stamp: stamping the detector graphs, which run on their own stream
+beside the step graph, cost the chained loop ~9 % of its frame rate on
+an H100 (PERF.md).  Off, the stitched graph has no stamp node.
 """
 
 from __future__ import annotations
@@ -34,13 +44,15 @@ from typing import Callable
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, trace
 
 _V = ctypes.c_void_p
 _SEG, _OPEN, _CLOSE = 0, 1, 2          # graph_while.cu's item kinds
 
 _LOOP_RUNNER: contextvars.ContextVar = contextvars.ContextVar(
     "device_loop_runner", default=None)
+_LOOP_NAME: contextvars.ContextVar = contextvars.ContextVar(
+    "device_loop_name", default="loop")
 
 
 @contextlib.contextmanager
@@ -55,13 +67,18 @@ def loop_runner(run: Callable):
         _LOOP_RUNNER.reset(token)
 
 
-def run_loop(body: Callable, flag: torch.Tensor) -> bool:
+def run_loop(body: Callable, flag: torch.Tensor, name: str = "loop") -> bool:
     """Hand ``while flag: body()`` to the active :func:`loop_runner`;
-    False when there is none (the caller then loops on the host)."""
+    False when there is none (the caller then loops on the host).
+    ``name`` labels the loop in a captured graph's stamped items."""
     run = _LOOP_RUNNER.get()
     if run is None:
         return False
-    run(body, flag)
+    token = _LOOP_NAME.set(name)
+    try:
+        run(body, flag)
+    finally:
+        _LOOP_NAME.reset(token)
     return True
 
 
@@ -89,7 +106,8 @@ def _lib():
     if not getattr(lib, "_sdpl_bound", False):
         lib.sdpl_graph_build.argtypes = [
             ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(_V),
-            ctypes.POINTER(_V), ctypes.POINTER(_V), ctypes.POINTER(_V)]
+            ctypes.POINTER(_V), _V, ctypes.POINTER(_V), ctypes.POINTER(_V),
+            ctypes.POINTER(ctypes.c_size_t)]
         lib.sdpl_graph_build.restype = ctypes.c_int
         lib.sdpl_graph_node_count.argtypes = [
             _V, ctypes.POINTER(ctypes.c_size_t)]
@@ -130,17 +148,54 @@ def _flatten(items, out, keep=lambda graph: True):
     return out
 
 
+def _stamp_items(items, nodes, prefix, depth, out):
+    """The stamped items in graph_while.cu's slot order (a kept segment;
+    a loop, then its body, then the body's items), each a dict: ``path``
+    (``<graph>/<index>.<seg or loop name>``, a body ``<loop path>/body``),
+    ``name``, ``kind`` (seg / loop / body), ``depth`` (0 at the top; a
+    body's items one deeper than its loop) and ``nodes`` (a segment's
+    captured nodes; a loop's and a body's: those of one pass through the
+    body).  ``nodes(graph)`` counts a capture; empty ones get no stamp."""
+    for i, it in enumerate(items):
+        if it[0] == "seg":
+            n = nodes(it[1])
+            if n:
+                out.append(dict(path="%s/%d.seg" % (prefix, i), name="seg",
+                                kind="seg", depth=depth, nodes=n))
+            continue
+        path = "%s/%d.%s" % (prefix, i, it[3])
+        loop = dict(path=path, name=it[3], kind="loop", depth=depth)
+        body = dict(path=path + "/body", name=it[3], kind="body",
+                    depth=depth)
+        out += [loop, body]
+        first = len(out)
+        _stamp_items(it[1], nodes, path + "/body", depth + 1, out)
+        loop["nodes"] = body["nodes"] = sum(
+            x["nodes"] for x in out[first:] if x["kind"] == "seg")
+    return out
+
+
 class StitchedGraph:
     """One instantiated graph of captured segments and device loops.
     ``launch()`` runs it on the current stream and adds each counter's
     per-launch gain.  It keeps the captured graphs (and so their memory
-    pool) alive as long as it lives."""
+    pool) alive as long as it lives.  ``name`` labels its launches and
+    stamped items (``step``, ``detector.fast``, ``ba``, ...); ``stamps``
+    are its in-graph timers (``trace.Stamps``), or None (recorder off at
+    the stitch, or no loop)."""
 
-    def __init__(self, items, counters):
+    def __init__(self, items, counters, name: str = "graph"):
         self._lib = _lib()
         self._items = items               # keeps graphs, pool and flags alive
         self._counters = counters         # [(owner, attribute, gain)]
+        self.name = name
+        self._device = torch.device("cuda", torch.cuda.current_device())
         flat = _flatten(items, [], lambda g: self._node_count(g) > 0)
+        self.stamps = None
+        if any(k == _OPEN for k, _, _ in flat):
+            self.stamps = trace.stamps(
+                name, _stamp_items(items, self._node_count, name, 0, []),
+                self._device)
         n = len(flat)
         kinds = (ctypes.c_int * n)(*[k for k, _, _ in flat])
         graphs = (_V * n)(*[g.raw_cuda_graph() if g is not None else None
@@ -148,15 +203,22 @@ class StitchedGraph:
         flags = (_V * n)(*[f.data_ptr() if f is not None else None
                            for _, _, f in flat])
         self._graph, self._exec = _V(), _V()
-        err = self._lib.sdpl_graph_build(n, kinds, graphs, flags,
-                                         ctypes.byref(self._graph),
-                                         ctypes.byref(self._exec))
+        added = ctypes.c_size_t()
+        err = self._lib.sdpl_graph_build(
+            n, kinds, graphs, flags,
+            None if self.stamps is None else self.stamps.dev.data_ptr(),
+            ctypes.byref(self._graph), ctypes.byref(self._exec),
+            ctypes.byref(added))
         if err:
             _check(self._lib, err, "building the graph (%s; node types by "
                    "segment, cudaGraphNodeType: count %s)" % (
                        self._lib.sdpl_graph_build_where().decode(),
                        [self._node_types(g) for _, g, _ in flat
                         if g is not None]))
+        # every node of the graph: the builder's and the captures' cloned in
+        self.node_total = added.value + sum(
+            sum(self._node_types(g).values()) for _, g, _ in flat
+            if g is not None)
 
     def _node_types(self, graph) -> dict:
         counts = (ctypes.c_int * 32)()
@@ -180,8 +242,10 @@ class StitchedGraph:
 
     def launch(self):
         stream = torch.cuda.current_stream().cuda_stream
-        _check(self._lib, self._lib.sdpl_graph_launch(self._exec, stream),
-               "cudaGraphLaunch")
+        with trace.device_span(self.name, self._device, self.stamps), \
+                trace.span("graph.launch", kind=self.name):
+            err = self._lib.sdpl_graph_launch(self._exec, stream)
+        _check(self._lib, err, "cudaGraphLaunch")
         for owner, attr, gain in self._counters:
             setattr(owner, attr, getattr(owner, attr) + gain)
 
@@ -245,7 +309,9 @@ class GraphRecorder:
         """``while flag: body()`` as a WHILE node: closes the segment,
         captures ``body`` once as a sequence of its own (the loops it
         hands over nest) and opens the next segment.  ``body`` must update
-        ``flag`` and its state in place."""
+        ``flag`` and its state in place.  The loop takes the name
+        :func:`run_loop` was given."""
+        name = _LOOP_NAME.get()
         if flag.dtype != torch.bool or flag.numel() != 1 or not flag.is_cuda:
             raise ValueError("loop flag must be a one-element CUDA bool")
         self._end_segment()
@@ -254,12 +320,12 @@ class GraphRecorder:
         body()
         self._end_segment()
         seq = self._seqs.pop()
-        self._seqs[-1].append(("while", seq, flag))
+        self._seqs[-1].append(("while", seq, flag, name))
         self._begin_segment()
 
-    def stitch(self) -> StitchedGraph:
+    def stitch(self, name: str = "graph") -> StitchedGraph:
         gains = []
         for owner, attr, before in self._counters:
             gains.append((owner, attr, getattr(owner, attr) - before))
             setattr(owner, attr, before)      # nothing ran: take it back
-        return StitchedGraph(self.items, gains)
+        return StitchedGraph(self.items, gains, name)

@@ -102,10 +102,19 @@ def test_json_keys_cover_jax():
 
 
 def _mark_names(path: Path, fn: str) -> list:
-    return [n.args[0].value for n in ast.walk(ast.parse(path.read_text()))
-            if isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
-            and n.func.id == fn and n.args
-            and isinstance(n.args[0], ast.Constant)]
+    """The constant first arguments of the calls of ``fn`` (a name, or an
+    attribute such as ``trace.section``) in ``path``, in source order."""
+    def named(f):
+        return (isinstance(f, ast.Name) and f.id == fn) or (
+            isinstance(f, ast.Attribute) and "." in fn
+            and f.attr == fn.rpartition(".")[2]
+            and isinstance(f.value, ast.Name)
+            and f.value.id == fn.rpartition(".")[0])
+    calls = [n for n in ast.walk(ast.parse(path.read_text()))
+             if isinstance(n, ast.Call) and named(n.func) and n.args
+             and isinstance(n.args[0], ast.Constant)]
+    return [n.args[0].value for n in sorted(
+        calls, key=lambda n: (n.lineno, n.col_offset))]
 
 
 def _jax_sections():
@@ -116,10 +125,11 @@ def _jax_sections():
 
 
 def test_section_names_match_jax():
-    """The chained driver marks JAX's sections, in JAX's order."""
+    """The chained driver's sections (``chained.<name>`` spans of the span
+    recorder) are JAX's, in JAX's order."""
     got = _mark_names(ROOT / "sdpl_slam_torch" / "models" / "chained.py",
-                      "mark")
-    assert got == _jax_sections()
+                      "trace.section")
+    assert got == ["chained." + k for k in _jax_sections()]
 
 
 @pytest.fixture(scope="module")

@@ -26,7 +26,7 @@ from sdpl_slam_tpu.utils import config as jax_config
 from sdpl_slam_torch.io import dataset
 from sdpl_slam_torch.models.system import System
 from sdpl_slam_torch.models.tracking import Tracking
-from sdpl_slam_torch.utils import convert, metrics
+from sdpl_slam_torch.utils import convert, metrics, trace
 from sdpl_slam_torch.utils.synthetic import (SynthConfig, SynthSequence,
                                              synth_settings)
 
@@ -110,7 +110,13 @@ def _assert_camera_parity(mj, mt):
 
 @pytest.fixture(scope="module")
 def detector_run():
-    return _pair(SynthConfig(n_frames=N, n_objects=1), N - 1)
+    """(JAX map, port map, the port's timed line stages: its
+    ``detector.lines`` spans)."""
+    with trace.enabled():
+        mj, mt, _ = _pair(SynthConfig(n_frames=N, n_objects=1), N - 1)
+        lines = sum(s.name == "detector.lines"
+                    for s in trace.collect()["spans"])
+    return mj, mt, lines
 
 
 def test_detector_run_matches_jax(detector_run):
@@ -123,8 +129,8 @@ def test_detector_run_matches_jax(detector_run):
 def test_detected_lines_match_jax(detector_run):
     """The same static lines are selected and tracked in both packages:
     equal counts per frame and equal endpoints to 0.5 px."""
-    mj, mt, tracker = detector_run
-    assert len(tracker.line_detect_ms) == N - 1      # ran once a frame
+    mj, mt, n_lines = detector_run
+    assert n_lines == N - 1      # ran once a frame
     for i in range(mj.n_frames):
         vj, vt = np.asarray(mj.line_valid[i]), np.asarray(mt.line_valid[i])
         assert vj.sum() == vt.sum(), i

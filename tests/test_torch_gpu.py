@@ -23,6 +23,7 @@ import torch
 
 from sdpl_slam_torch.models.system import System
 from sdpl_slam_torch.ops import fast as tf
+from sdpl_slam_torch.utils import trace
 from sdpl_slam_torch.utils.synthetic import (SynthSequence, kitti_config,
                                              slice_settings)
 
@@ -312,13 +313,16 @@ def test_disk_frames_on_card_match_cpu(cuda, seq, tmp_path):
         s = System(tmp_path / "settings.yaml", verbose=False, **kw)
         assert s.device.type == dev
         before = tf.fast_score_pyramid.launches
-        for i in range(loaded.n_frames):
-            s.track_rgbd(*loaded.frame(i), loaded.gt_pose(i),
-                         loaded.gt_obj_poses(i), float(loaded.timestamps[i]),
-                         loaded.n_frames)
+        with trace.enabled():
+            for i in range(loaded.n_frames):
+                s.track_rgbd(*loaded.frame(i), loaded.gt_pose(i),
+                             loaded.gt_obj_poses(i),
+                             float(loaded.timestamps[i]), loaded.n_frames)
+            spans = trace.collect()["spans"]
         assert tf.fast_score_pyramid.launches - before == (
             loaded.n_frames if dev == "cuda" else 0)
-        assert len(s.tracker.line_detect_ms) == loaded.n_frames
+        assert sum(x.name == "detector.lines"
+                   for x in spans) == loaded.n_frames
         maps[dev] = s.map
     for a, b in zip(maps["cuda"].camera_poses, maps["cpu"].camera_poses):
         np.testing.assert_allclose(a, b, atol=1e-4)

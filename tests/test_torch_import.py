@@ -177,11 +177,19 @@ def _tiny_run(**over):
 def test_lines_without_detections_run_the_detector():
     """``use_lines`` on and no ``line_detections=``: the line detector
     runs in the loop, once a frame, on the tracker's device."""
-    s, pose = _tiny_run()
-    assert s.settings.use_lines and len(s.tracker.line_detect_ms) == 2
+    from sdpl_slam_torch.utils import trace
+
+    lines = []
+    with trace.enabled():
+        for use_lines in (True, False):
+            runs = _tiny_run(use_lines=use_lines)
+            lines.append([x for x in trace.collect()["spans"]
+                          if x.name == "detector.lines"])
+            if use_lines:
+                s, pose = runs
+    assert s.settings.use_lines and len(lines[0]) == 2
     assert pose.shape == (4, 4) and torch.isfinite(torch.from_numpy(pose)).all()
-    off, _ = _tiny_run(use_lines=False)
-    assert off.tracker.line_detect_ms == []
+    assert lines[1] == []
 
 
 def test_nonjoint_setting_runs():

@@ -17,6 +17,7 @@ import torch
 
 from sdpl_slam_torch.models.system import System
 from sdpl_slam_torch.models.tracking import Tracking
+from sdpl_slam_torch.utils import trace
 from sdpl_slam_torch.utils.synthetic import (SynthConfig, SynthSequence,
                                              synth_settings)
 
@@ -42,6 +43,21 @@ def _run(pipelined, detectors_in_loop, hints=True, n_frames=6, system=None):
             line_detections=None if detectors_in_loop else f.lines,
             next_image=None if nxt is None else nxt.gray)
     return sys_
+
+
+def _traced_run(*args, **kw):
+    """:func:`_run` with the span recorder on -> (the system, how many
+    synchronous line stages it timed, how many predispatches it made: the
+    ``detector.lines`` spans and the ``detector.dispatch`` spans outside a
+    synchronous ``detector.run``)."""
+    with trace.enabled():
+        sys_ = _run(*args, **kw)
+        spans = trace.collect()["spans"]
+    lines = sum(s.name == "detector.lines" for s in spans)
+    pre = sum(s.name == "detector.dispatch"
+              and (s.parent < 0 or spans[s.parent].name != "detector.run")
+              for s in spans)
+    return sys_, lines, pre
 
 
 def _assert_maps_equal(a, b):
@@ -78,11 +94,12 @@ def test_pipelined_equals_synchronous_injected():
 def test_pipelined_equals_synchronous_detectors_in_loop():
     """FAST and the line detector in the loop; the pipelined run takes
     frames 1-4's detections from the previous call's predispatch."""
-    sync, pipe = _run(False, True), _run(True, True)
+    (sync, sync_lines, _), (pipe, pipe_lines, pipe_pre) = (
+        _traced_run(False, True), _traced_run(True, True))
     _assert_maps_equal(sync.map, pipe.map)
-    assert len(sync.tracker.line_detect_ms) == 5
-    assert len(pipe.tracker.line_detect_ms) == 1          # frame 0 alone
-    assert len(pipe.tracker.predispatch_ms) == 4
+    assert sync_lines == 5
+    assert pipe_lines == 1          # frame 0 alone
+    assert pipe_pre == 4
 
 
 def test_pipelined_returns_previous_pose_and_finishes_last_frame():
@@ -130,13 +147,12 @@ def test_next_image_predispatch_gives_the_same_map():
     """``next_image`` hints dispatch frame t+1's detectors during frame t;
     the map is the one without hints, and each frame's detectors run
     once."""
-    hinted = _run(True, True, hints=True)
-    plain = _run(True, True, hints=False)
+    hinted, hinted_lines, hinted_pre = _traced_run(True, True, hints=True)
+    plain, plain_lines, plain_pre = _traced_run(True, True, hints=False)
     _assert_maps_equal(plain.map, hinted.map)
-    assert len(plain.tracker.line_detect_ms) == 5
-    assert len(plain.tracker.predispatch_ms) == 0
-    assert (len(hinted.tracker.line_detect_ms)
-            + len(hinted.tracker.predispatch_ms)) == 5
+    assert plain_lines == 5
+    assert plain_pre == 0
+    assert hinted_lines + hinted_pre == 5
 
 
 def test_pipelined_window_ba_matches_synchronous():

@@ -15,7 +15,7 @@ import torch
 from sdpl_slam_torch.models import resident as res
 from sdpl_slam_torch.models.system import System
 from sdpl_slam_torch.models.tracking import Tracking, check_supported
-from sdpl_slam_torch.utils import metrics
+from sdpl_slam_torch.utils import metrics, trace
 from sdpl_slam_torch.utils.synthetic import (SynthConfig, SynthSequence,
                                              synth_settings)
 
@@ -155,11 +155,17 @@ def test_resident_system_matches_host_injected():
 def test_resident_system_matches_host_detectors():
     """FAST and the line detector inside the step (``use_sample_fea = 0``,
     nothing injected)."""
-    host, resident = _run_system(False, True), _run_system(True, True)
+    runs, lines = [], []
+    with trace.enabled():
+        for resident in (False, True):
+            runs.append(_run_system(resident, True))
+            lines.append(sum(s.name == "detector.lines"
+                             for s in trace.collect()["spans"]))
+    host, resident = runs
     _maps_close(host.map, resident.map)
-    assert len(host.tracker.line_detect_ms) == 5
+    assert lines[0] == 5
     # the step does not host-time the detector (a host-path figure)
-    assert len(resident.tracker.line_detect_ms) == 1
+    assert lines[1] == 1
 
 
 @pytest.mark.parametrize("n_frames", [6, 7])
