@@ -10,6 +10,13 @@
    bit for bit.  Device time from CUDA events around 200 back-to-back
    launches, warm and with the L2 cache flushed; wall time of one call;
    the bytes/operations bound of this run's data and the share reached.
+   Then the LM phase: the joint flow+pose LM's body, the kernel
+   ``csrc/flow_pose_lm.cu`` against the plain PyTorch body at the
+   chained step's capacities (1 lane of 1200 points and 400 lines; 8
+   lanes of 800 and 100): one iteration from the same state, timed as a
+   captured graph; then the whole loop captured with each body (a
+   launch of it counted once on the host, and once an iteration by the
+   kernel's own count).
 3. Lines phase: ``ops.lines.detect_lines`` on two KITTI-size grey frames
    in both modes (0 LSD-style, 1 EDLines-style) on the card against the
    same call on the CPU (set-level match of the segments, gated), its
@@ -155,7 +162,8 @@ import sys
 import tempfile
 import time
 
-CUDA_SOURCES = ("fast_score.cu", "graph_while.cu")  # built at start
+CUDA_SOURCES = ("fast_score.cu", "graph_while.cu",  # built at start
+                "flow_pose_lm.cu")
 N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
@@ -229,12 +237,14 @@ def _median_ms(fn, reps=TIMING_REPS):
     return times[len(times) // 2]
 
 
-def _device_ms(fn, reps=DEVICE_REPS, flush=None):
+def _device_ms(fn, reps=DEVICE_REPS, prepare=None, median=False):
     """Device time per call of ``fn`` from CUDA events: ``reps`` calls
     back to back, enqueued while the card is held in ``torch.cuda._sleep``
-    so that the host's launch path does not pace them.  With ``flush`` (a
-    tensor), each call follows a write of it (evicting the L2 cache) and
-    is timed by its own pair of events."""
+    so that the host's launch path does not pace them; their mean.  With
+    ``prepare`` (a callable: a write that evicts the L2 cache, or one that
+    puts a state back), each call follows ``prepare()`` and is timed by
+    its own pair of events; the mean of those, or with ``median`` their
+    median."""
     import torch
 
     fn()
@@ -245,23 +255,26 @@ def _device_ms(fn, reps=DEVICE_REPS, flush=None):
         slept = torch.cuda.Event()
         slept.record()
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(2 if flush is None else 2 * reps)]
-        if flush is None:
+              for _ in range(2 if prepare is None else 2 * reps)]
+        if prepare is None:
             ev[0].record()
             for _ in range(reps):
                 fn()
             ev[1].record()
         else:
             for i in range(reps):
-                flush.fill_(float(i))
+                prepare()
                 ev[2 * i].record()
                 fn()
                 ev[2 * i + 1].record()
         ahead = not slept.query()      # all enqueued before the card woke
         torch.cuda.synchronize()
         if ahead:
-            return sum(ev[2 * i].elapsed_time(ev[2 * i + 1])
-                       for i in range(len(ev) // 2)) / reps
+            if prepare is None:
+                return ev[0].elapsed_time(ev[1]) / reps
+            t = sorted(ev[2 * i].elapsed_time(ev[2 * i + 1])
+                       for i in range(reps))
+            return t[reps // 2] if median else sum(t) / reps
         cycles *= 4
     raise RuntimeError("the host could not enqueue %d calls ahead of the "
                        "card" % reps)
@@ -386,9 +399,149 @@ def kernel_phase(grays, dev):
                 bound_bytes=bound_bytes, ops=ops, bound_ms=bound_ms,
                 bound_by=bound_by,
                 dev_ms=_device_ms(kernel),
-                dev_cold_ms=_device_ms(kernel, flush=flush),
+                dev_cold_ms=_device_ms(
+                    kernel, prepare=lambda: flush.fill_(1.0)),
                 wall_ms=_median_ms(kernel), plain_ms=_median_ms(plain_fn),
                 two_dev_ms=_device_ms(lambda: kernel(frames[0] + frames[1])))
+
+
+# LM phase: the joint flow+pose LM's body at the chained step's two
+# capacities: (name, lanes, points, lines a lane, prior information)
+LM_SHAPES = (("camera", 1, 1200, 400, 0.3), ("objects", 8, 800, 100, 0.5))
+LM_MOTIONS = (1.0, 0.3, 2.0, 0.05, 0.5, 1.5, 0.1, 0.8)
+LM_STATE = ("T", "f", "g", "cost", "lam", "nu", "it", "done", "active_any")
+LM_REPS = 50         # a launch and 9 copies each: within the launch queue
+# float operations of the kernel a feature, both passes (counted from
+# csrc/flow_pose_lm.cu: linearisation, reduction terms, the step, the new
+# cost); bytes a feature: its inputs read once, its flow written once
+LM_OPS_POINT, LM_OPS_LINE = 435, 1580
+LM_BYTES_POINT, LM_BYTES_LINE = 37 + 8, 73 + 16
+
+
+def lm_phase():
+    """The joint LM's body at the chained step's capacities: the kernel
+    (``frame_solvers.lm_iteration_cuda``) against the plain PyTorch body
+    (``lm_iteration_torch``) on the card, one iteration from the same
+    state, each captured as a graph and timed by CUDA events (the state
+    put back before each launch, outside the events); then the whole loop
+    (``lm_init`` and the WHILE node) captured with each body.  Returns
+    one dict a shape."""
+    import torch
+
+    from sdpl_slam_torch.solvers import frame_solvers as fs
+    from sdpl_slam_torch.utils.cuda_graphs import (GraphRecorder,
+                                                   capture_stream,
+                                                   host_while, loop_runner,
+                                                   run_loop)
+    from sdpl_slam_torch.utils.synthetic import flow_pose_lanes
+
+    dev = torch.device("cuda")
+    side = capture_stream(dev)
+    eye = torch.eye(4, device=dev)
+    shapes, rows, after = [], [], []
+    for name, B, N, M, prior in LM_SHAPES:
+        inp = flow_pose_lanes(0, N, M, LM_MOTIONS[:B], dev)
+        shapes.append((inp, prior))
+        rows.append(dict(name=name, B=B, N=N, M=M))
+        after.append({})
+
+    def capture(fn):
+        torch.cuda.synchronize()
+        rec = GraphRecorder(counters=[(fs.lm_iteration_cuda, "launches")])
+        with torch.cuda.stream(side):
+            with rec, loop_runner(rec.loop):
+                fn()
+        graph = rec.stitch("lm")
+        torch.cuda.synchronize()
+        return graph
+
+    for kind, body in (("plain", fs.lm_iteration_torch),
+                       ("kernel", fs.lm_iteration_cuda)):
+        for ((T0, pts, lns, K), prior), row, aft in zip(shapes, rows, after):
+            def init():
+                return fs.lm_init(T0, eye, pts, lns, K,
+                                  flow_prior_info=prior,
+                                  line_prior_info=prior, rel_tol=1e-4)
+
+            s = init()
+            keep = {k: getattr(s, k).clone() for k in LM_STATE}
+
+            def restore(s=s, keep=keep):
+                for k, v in keep.items():
+                    getattr(s, k).copy_(v)
+
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                body(s)                       # warm-up outside the capture
+            torch.cuda.synchronize()
+            restore()
+            one = capture(lambda: body(s))
+            restore()
+            one.launch()
+            torch.cuda.synchronize()
+            aft[kind] = {k: getattr(s, k).clone() for k in LM_STATE}
+            row[kind + "_nodes"] = one.node_counts()[0]
+            row[kind + "_us"] = _device_ms(one.launch, reps=LM_REPS,
+                                           prepare=restore,
+                                           median=True) * 1e3
+            # the whole loop, as the step captures it
+            holder = {}
+
+            def solve(body=body):
+                s2 = init()
+                assert run_loop(lambda: body(s2), s2.active_any,
+                                "flow_pose.lm")
+                holder["s"] = s2
+
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                with loop_runner(host_while):
+                    solve()
+            torch.cuda.synchronize()
+            loop = capture(solve)
+            launches = fs.lm_iteration_cuda.launches
+            runs = fs.lm_kernel_runs()
+            loop.launch()
+            torch.cuda.synchronize()
+            iters = int(holder["s"].it.max())
+            # a replay counts the captured call once on the host; the
+            # kernel counts each body run (the lanes' most iterations)
+            got = (fs.lm_iteration_cuda.launches - launches,
+                   fs.lm_kernel_runs() - runs)
+            if got != ((1, iters) if kind == "kernel" else (0, 0)):
+                raise AssertionError("LM phase, %s, %s body: one launch of "
+                                     "the loop counted %s (host, kernel) "
+                                     "for %d iterations"
+                                     % (row["name"], kind, got, iters))
+            row[kind + "_iters"] = holder["s"].it.tolist()
+            row[kind + "_loop_us"] = _device_ms(loop.launch, reps=20) * 1e3
+            row[kind + "_loop_nodes"] = loop.node_counts()
+            row[kind + "_us_a_loop_iter"] = row[kind + "_loop_us"] / iters
+    for row, aft in zip(rows, after):
+        name, B, N, M = row["name"], row["B"], row["N"], row["M"]
+        a, b = aft["kernel"], aft["plain"]
+        for k in ("nu", "it", "done", "active_any"):
+            if not torch.equal(a[k], b[k]):
+                raise AssertionError("LM phase, %s: kernel and plain body "
+                                     "part on %s after one iteration"
+                                     % (name, k))
+        row["max_err"] = {k: float((a[k] - b[k]).abs().max())
+                          for k in ("T", "f", "g", "cost", "lam")}
+        if not (row["max_err"]["T"] < 2e-5 and row["max_err"]["f"] < 2e-3
+                and row["max_err"]["g"] < 2e-3):
+            raise AssertionError("LM phase, %s: kernel against plain body "
+                                 "%s" % (name, row["max_err"]))
+        it_k, it_p = row["kernel_iters"], row["plain_iters"]
+        if max(abs(x - y) for x, y in zip(it_k, it_p)) > 1:
+            raise AssertionError("LM phase, %s: iterations %s against the "
+                                 "plain body's %s" % (name, it_k, it_p))
+        row["bytes"] = B * (N * LM_BYTES_POINT + M * LM_BYTES_LINE)
+        row["ops"] = B * (N * LM_OPS_POINT + M * LM_OPS_LINE)
+        row["bound_us"] = max(row["bytes"] / HBM_BYTES_PER_S,
+                              row["ops"] / FP32_OPS_PER_S) * 1e6
+        row["bound_by"] = ("bytes" if row["bytes"] / HBM_BYTES_PER_S
+                           >= row["ops"] / FP32_OPS_PER_S else "operations")
+    return rows
 
 
 def _lba_settings(seq):
@@ -677,6 +830,7 @@ def disk_phase(root, out_dir):
     from sdpl_slam_torch.models import frame_program as fp
     from sdpl_slam_torch.models.system import System
     from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.solvers import frame_solvers as fs
     from sdpl_slam_torch.utils import trace
 
     system = System(os.path.join(root, "settings.yaml"), verbose=False)
@@ -696,6 +850,7 @@ def disk_phase(root, out_dir):
     replays = {}
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
+    lm_runs = fs.lm_kernel_runs()
     system.tracker.lm_host_syncs = 0
     captures = (fp.FrameProgram.captures, fp.DetectorProgram.captures)
     frame_ms, wait_ms = [], []
@@ -733,6 +888,7 @@ def disk_phase(root, out_dir):
     finally:
         pf.close()
     launches = fast.fast_score_pyramid.launches
+    lm_runs = fs.lm_kernel_runs() - lm_runs
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
     captures = (fp.FrameProgram.captures - captures[0],
@@ -770,7 +926,7 @@ def disk_phase(root, out_dir):
                 before_window=before_window, before_motions=before_motions,
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
                 line_ms=line_ms, detect_ms=_span_ms(spans, "detector.run"),
-                n_lines=n_lines, launches=launches,
+                n_lines=n_lines, launches=launches, lm_runs=lm_runs,
                 syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
                 decoder=png_decoder(), captures=captures, loads=loads.rows)
 
@@ -1548,6 +1704,7 @@ def chained_phase(root, loaded, host_map, host_before_window):
     from sdpl_slam_torch.models import chained as tch
     from sdpl_slam_torch.models.chained import bundle_size
     from sdpl_slam_torch.models.system import System
+    from sdpl_slam_torch.solvers import frame_solvers as fs
 
     frames = [loaded.frame(i) for i in range(N_RESIDENT)]
     out = {}
@@ -1557,6 +1714,7 @@ def chained_phase(root, loaded, host_map, host_before_window):
                                        chained_depth=depth), verbose=False)
         tr = system.tracker
         full = depth == 2
+        lm0 = fs.lm_kernel_runs()
         with _GraphAgainstEager(tch.ChainedProgram, _eegg, trace_frame=None,
                                 graph_trace_frame=EAGER_TRACE_FRAME) as cmp:
             run = _loop_run(system, loaded, frames[:n], hints=True,
@@ -1565,6 +1723,10 @@ def chained_phase(root, loaded, host_map, host_before_window):
                             trace_exclude=("chained_step",),
                             steady_skip=COMPARE_FRAMES)
         what = "chained path, depth %d" % depth
+        lm_runs = fs.lm_kernel_runs() - lm0    # the eager twins' included
+        if lm_runs <= 0:
+            raise AssertionError("%s: the joint LM's kernel never ran"
+                                 % what)
         rpe, n_obj, labels, ref = _check_loop(
             system, run, n, what, host_map, host_before_window, window=full)
         dt, dr = _abs_pose_worst(ref, run["snap"])
@@ -1589,7 +1751,7 @@ def chained_phase(root, loaded, host_map, host_before_window):
         caps = dict(NS=tr.NS, NLS=tr.NLS, NO=tr.NO, NLO=tr.NLO)
         out[depth] = dict(run, rpe=rpe, n_obj=n_obj, labels=labels, dt=dt,
                           dr=dr, ba_runs=tr.ba_runs, cmp=cmp.rows,
-                          capture_s=cmp.capture_s,
+                          capture_s=cmp.capture_s, lm_runs=lm_runs,
                           graph_trace=cmp.graph_trace,
                           bundle_bytes=4 * bundle_size(caps, depth))
     captures = tch.ChainedProgram.captures - captures
@@ -1606,8 +1768,9 @@ def bench_phase():
     configuration (54 KITTI-scale generator frames, 53 tracked in the
     chained loop, windows at 19 / 35 / 51, nothing injected), through
     ``bench.run``.  Checks the RPE gates and a headline above 0, one FAST
-    launch a frame, no LM host read, three windows, one entry per chained
-    frame in every section of the driver's timers; the device-exec probe
+    launch a frame, no LM host read, the joint LM's kernel run (its own
+    count), three windows, one entry per chained frame in every section
+    of ``ChainedDriver.perf``; the device-exec probe
     checks itself (carried state, provenance, inputs and output put back
     bit for bit, no capture).  Returns the bench's JSON line and its
     counts."""
@@ -1615,6 +1778,7 @@ def bench_phase():
 
     from sdpl_slam_torch import bench
     from sdpl_slam_torch.ops import fast
+    from sdpl_slam_torch.solvers import frame_solvers as fs
 
     cfg = bench.bench_config()
     settings = bench.bench_settings(cfg)
@@ -1623,9 +1787,11 @@ def bench_phase():
     before = bench.captures()
     torch.cuda.synchronize()
     fast.fast_score_pyramid.launches = 0
+    lm_runs = fs.lm_kernel_runs()
     t0 = time.perf_counter()
     out = bench.run(cfg, settings, passes=1, device="cuda", systems=systems)
     launches = fast.fast_score_pyramid.launches
+    lm_runs = fs.lm_kernel_runs() - lm_runs
     seconds = time.perf_counter() - t0
     system = systems[0]
     tr = system.tracker
@@ -1648,10 +1814,13 @@ def bench_phase():
         failures.append("sections %s for %d chained frames" % (lens, n - 1))
     if not math.isfinite(out["device_exec_ms_per_frame"]):
         failures.append("no device-exec probe")
+    if lm_runs <= 0:
+        failures.append("the joint LM's kernel never ran")
     if failures:
         raise AssertionError("bench phase: " + "; ".join(failures))
     sections = {k: float(sorted(v)[len(v) // 2]) for k, v in perf.items()}
-    return dict(out=out, n=n, launches=launches, seconds=seconds,
+    return dict(out=out, n=n, launches=launches, lm_runs=lm_runs,
+                seconds=seconds,
                 ba_runs=tr.ba_runs, sections=sections,
                 captures={k: v - before[k]
                           for k, v in bench.captures().items()})
@@ -2526,6 +2695,11 @@ def main():
             if "registers" in ln or "spill" in ln:
                 print("  ptxas:", ln.strip())
     sass = _sass_sections(lib)
+    ptxas = libs[2].with_suffix(".ptxas.txt")
+    if ptxas.exists():
+        for ln in ptxas.read_text().splitlines():
+            if "registers" in ln or "spill" in ln:
+                print("  ptxas (flow_pose_lm.cu):", ln.strip())
 
     t0 = time.perf_counter()
     seq = SynthSequence(kitti_config(n_frames=N_FRAMES + 1))
@@ -2570,6 +2744,31 @@ def main():
               FP32_OPS_PER_S / 1e12, k["ops"] / FP32_OPS_PER_S * 1e3,
               k["bound_by"], 100 * k["bound_ms"] / k["dev_ms"],
               100 * k["bound_ms"] / k["dev_cold_ms"], smi))
+
+    lm = lm_phase()
+    print("LM phase: the joint flow+pose LM's body, the kernel "
+          "(csrc/flow_pose_lm.cu) against the plain PyTorch body on the "
+          "card, one iteration from the same state (seeded lanes, rel_tol "
+          "1e-4); each captured as a graph, CUDA events around each of %d "
+          "launches (median), the state put back between them; then the "
+          "whole loop (lm_init and its WHILE node) captured with each body, "
+          "events around 20 launches" % LM_REPS)
+    for r in lm:
+        print("  [%s] %s: %d lanes x %d points, %d lines: an iteration %.2f "
+              "us kernel (%s nodes) against %.2f us plain (%s nodes), %.1fx; "
+              "the loop %.1f us kernel (%s iterations, %.2f us each, nodes "
+              "%s) against %.1f us plain (%s, %.2f us each, nodes %s); bound "
+              "%d B, ~%d float ops = %.4f us (by %s); max |kernel - plain| "
+              "after one iteration %s" % (
+                  smi, r["name"], r["B"], r["N"], r["M"], r["kernel_us"],
+                  r["kernel_nodes"], r["plain_us"], r["plain_nodes"],
+                  r["plain_us"] / r["kernel_us"], r["kernel_loop_us"],
+                  r["kernel_iters"], r["kernel_us_a_loop_iter"],
+                  _nest_summary(r["kernel_loop_nodes"]), r["plain_loop_us"],
+                  r["plain_iters"], r["plain_us_a_loop_iter"],
+                  _nest_summary(r["plain_loop_nodes"]), r["bytes"],
+                  r["ops"], r["bound_us"], r["bound_by"],
+                  {k: "%.3g" % v for k, v in r["max_err"].items()}))
 
     from sdpl_slam_torch.models.system import System
 
@@ -2637,10 +2836,11 @@ def main():
             raise AssertionError("disk phase: %d BA programs captured "
                                  "(at most %d expected)"
                                  % (caps, MAX_DISK_CAPTURES))
-        print("  FAST kernel launches %d (%d per frame), LM host syncs %d, "
-              "peak device memory %.1f MiB" % (
-                  res["launches"], res["launches"] // N_FRAMES, res["syncs"],
-                  res["peak"] / 2 ** 20))
+        print("  FAST kernel launches %d (%d per frame), joint-LM kernel "
+              "runs %d (its own count), LM host syncs %d, peak device "
+              "memory %.1f MiB" % (
+                  res["launches"], res["launches"] // N_FRAMES,
+                  res["lm_runs"], res["syncs"], res["peak"] / 2 ** 20))
         hp = host_programs_phase(res["loads"])
         print("  [%s] host-path programs captured in the phase: %d fused "
               "frame (one per object-lane count and line mode), %d detector"
@@ -2857,13 +3057,15 @@ def main():
             print("  depth %d: %d object motions; camera RPE %s; camera poses "
                   "against the disk phase's host run: worst %.5f m / %.5f deg "
                   "(gates %g m / %g deg); label streams %s the host run's; "
-                  "FAST launches %d (1 a frame)" % (
+                  "FAST launches %d (1 a frame); joint-LM kernel runs %d "
+                  "(its own count: every LM iteration of the graphs and of "
+                  "the eager twins)" % (
                       depth, c["n_obj"], ", ".join(
                           "%s %.6f m / %.5f deg" % (k, *v)
                           for k, v in c["rpe"].items()),
                       c["dt"], c["dr"], gt, gr,
                       "equal to" if c["labels"] else "differ from",
-                      c["launches"]))
+                      c["launches"], c["lm_runs"]))
             print("    [%s] wall ms per track_rgbd call: median %.2f over the "
                   "steady frames past the compared ones (resident phase: "
                   "%.2f); all %s; loop %.1f s; LM reads per frame %s; sync "
@@ -2932,9 +3134,11 @@ def main():
         print("bench phase: python -m sdpl_slam_torch.bench's run for one "
               "pass (%d KITTI-scale frames in the chained loop, windows at "
               "19 / 35 / 51, nothing injected) in %.1f s; FAST launches %d (1 "
-              "a frame), 0 LM host reads, captures %s; the device-exec probe "
-              "put the chained program back bit for bit and captured nothing"
-              % (bp["n"], bp["seconds"], bp["launches"], bp["captures"]))
+              "a frame), joint-LM kernel runs %d (its own count, the probe's "
+              "included), 0 LM host reads, captures %s; the device-exec "
+              "probe put the chained program back bit for bit and captured "
+              "nothing" % (bp["n"], bp["seconds"], bp["launches"],
+                           bp["lm_runs"], bp["captures"]))
         print("  [%s] section medians over %d chained frames (ms): %s" % (
             smi, bp["n"] - 1, ", ".join("%s %.3f" % kv
                                         for kv in bp["sections"].items())))
@@ -3084,7 +3288,22 @@ def main():
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,            # no PyTorch call computes FAST-9/16
-    }]}))
+    }] + [{
+        "name": "flow_pose_lm_iteration.%s" % r["name"],
+        "route": "cuda",
+        "source": "sdpl_slam_torch/csrc/flow_pose_lm.cu",
+        "replaces": None,              # XLA in the JAX package
+        # the kernel's own count of its runs (one an LM iteration) over
+        # the main path's runs that FAST's entry counts: the disk path and
+        # the bench phase (its device-exec probe's 10 step replays in it)
+        "launches": res["lm_runs"] + bp["lm_runs"],
+        "max_abs_err": r["max_err"]["T"],
+        "ms": r["kernel_us"] / 1e3,
+        "plain_ms": r["plain_us"] / 1e3,
+        "bound_ms": r["bound_us"] / 1e3,
+        "bound_by": r["bound_by"],
+        "library_ms": None,            # no PyTorch call computes it
+    } for r in lm]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -51,7 +51,8 @@ from ..ops.geometry import Intrinsics
 from ..solvers import frame_solvers as fs
 from ..utils.cuda_graphs import GraphRecorder, capture_stream, loop_runner
 from ..utils.device import copy_in
-from .resident import _inv, init_model, scene_flow_static_frac
+from .resident import (KERNEL_COUNTERS, _inv, init_model,
+                       scene_flow_static_frac)
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +392,7 @@ class FrameProgram:
         dev = self.device
         t0 = time.perf_counter()
         torch.cuda.synchronize(dev)
-        launches = fast_ops.fast_score_pyramid.launches
+        launches = [getattr(o, a) for o, a in KERNEL_COUNTERS]
         side = self._stream
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
@@ -399,12 +400,12 @@ class FrameProgram:
             # made outside the capture
             for i in range(len(self.stages)):
                 self._eager(i)
-        fast_ops.fast_score_pyramid.launches = launches
+        for (o, a), n in zip(KERNEL_COUNTERS, launches):
+            setattr(o, a, n)
         torch.cuda.synchronize(dev)
         graphs = []
         for i in range(len(self.stages)):
-            rec = GraphRecorder(counters=[(fast_ops.fast_score_pyramid,
-                                           "launches")])
+            rec = GraphRecorder(counters=KERNEL_COUNTERS)
             with torch.cuda.stream(side):
                 with rec, loop_runner(rec.loop):
                     self._eager(i)

@@ -117,6 +117,13 @@ class ResidentState(NamedTuple):
     ol_cand: torch.Tensor
 
 
+# the host counters of the hand-written kernels a captured program
+# launches (FAST, the joint LM's body): a graph adds what its capture
+# counted at every launch
+KERNEL_COUNTERS = ((fast_ops.fast_score_pyramid, "launches"),
+                   (fs.lm_iteration_cuda, "launches"))
+
+
 def _i32(x):
     return x.to(torch.int32)
 
@@ -1244,7 +1251,7 @@ class ResidentProgram:
         t0 = time.perf_counter()
         torch.cuda.synchronize(self.device)
         keep = [t.clone() for t in self.held()]
-        launches = fast_ops.fast_score_pyramid.launches
+        launches = [getattr(o, a) for o, a in KERNEL_COUNTERS]
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -1253,10 +1260,10 @@ class ResidentProgram:
             self._step()
             for dst, src in zip(self.held(), keep):
                 dst.copy_(src)
-        fast_ops.fast_score_pyramid.launches = launches
+        for (o, a), n in zip(KERNEL_COUNTERS, launches):
+            setattr(o, a, n)
         torch.cuda.synchronize(self.device)
-        rec = GraphRecorder(counters=[(fast_ops.fast_score_pyramid,
-                                       "launches")])
+        rec = GraphRecorder(counters=KERNEL_COUNTERS)
         with torch.cuda.stream(side):
             with rec, loop_runner(rec.loop):
                 self._step()

@@ -27,7 +27,11 @@ lane still active), :func:`lm_iteration` updates it in place, and
 counted in ``FlowPoseResult.host_syncs``).  Under a
 ``utils.cuda_graphs.loop_runner`` a caller takes the loop instead:
 ``models.resident`` captures the body into a CUDA graph and ends the loop
-on the device (a conditional WHILE node).
+on the device (a conditional WHILE node).  On the card the body is one
+hand-written kernel, ``csrc/flow_pose_lm.cu`` (:func:`lm_iteration_cuda`,
+one launch for all lanes, the loop flag set by the kernel itself); as
+plain PyTorch (:func:`lm_iteration_torch`, the CPU's body) an iteration
+is ~700 small kernels.
 
 The flow Jacobian of the line residual (``jax.jacfwd`` in JAX) is written
 in closed form: with c = p_h x q_h, n = sqrt(c.c + eps), l = c / n and
@@ -42,6 +46,8 @@ pose-only LM on fixed 3D structure, four gating rounds of a fixed
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -435,7 +441,10 @@ class LMState:
     and writes the same memory every time.  ``T`` (B, 4, 4), ``f``
     (B, N, 2), ``g`` (B, M, 4), ``cost`` / ``lam`` / ``nu`` (B,), ``it``
     (B,) int32, ``done`` (B,) bool, ``active_any`` () bool; ``problem`` the
-    constant inputs; ``host_syncs`` the exit tests read on the host."""
+    constant inputs; ``host_syncs`` the exit tests read on the host.  On
+    the card also the kernel's scratch: ``f_try`` / ``g_try`` (the trial
+    flows) and ``ticket`` () int32, made here because a captured loop body
+    may allocate nothing; None on the CPU."""
 
     def __init__(self, problem, T, f, g, cost, lam, nu, it, done):
         self.problem = problem
@@ -443,6 +452,10 @@ class LMState:
         self.lam, self.nu, self.it, self.done = lam, nu, it, done
         self.active_any = _any_active(done, it, problem.max_iterations)
         self.host_syncs = 0
+        self.f_try = self.g_try = self.ticket = None
+        if T.is_cuda:
+            self.f_try, self.g_try = torch.empty_like(f), torch.empty_like(g)
+            self.ticket = torch.zeros((), dtype=torch.int32, device=T.device)
 
 
 def _active(done, it, max_iterations):
@@ -461,6 +474,9 @@ def lm_init(T_init, T_wl, points: PointBundle, lines: LineBundle,
             rel_tol: float = 1e-7) -> LMState:
     """The batched joint LM's initial state (arguments as
     :func:`solve_flow_pose`, with a leading lane dim)."""
+    if T_init.is_cuda:          # the kernel reads the bundles as stored
+        points = PointBundle(*(a.contiguous() for a in points))
+        lines = LineBundle(*(a.contiguous() for a in lines))
     p = _FlowPoseProblem(T_init, T_wl, points, lines, K, rp_thres,
                          proj_info, flow_prior_info, line_proj_info,
                          line_prior_info, line_weight_thr, max_iterations,
@@ -473,13 +489,26 @@ def lm_init(T_init, T_wl, points: PointBundle, lines: LineBundle,
     # an empty lane (all padding) can never accept a step: done at once
     done = (p.pvalid.sum(-1) + p.lvalid.sum(-1)) < 1.0
     # the loop's own copies: lm_iteration writes them in place
-    return LMState(p, T.clone(), f.clone(), g.clone(), cost, lam, nu, it, done)
+    own = functools.partial(torch.clone, memory_format=torch.contiguous_format)
+    return LMState(p, own(T), own(f), own(g), cost, lam, nu, it, done)
 
 
 def lm_iteration(s: LMState) -> None:
     """One lane-masked LM iteration, in place: lanes that are done or out
     of iterations keep their state, so running it after the exit changes
-    nothing.  Ends by updating ``s.active_any``."""
+    nothing.  Ends by updating ``s.active_any``.  On the card one launch
+    of ``csrc/flow_pose_lm.cu`` (:func:`lm_iteration_cuda`); on the CPU
+    the plain PyTorch body :func:`lm_iteration_torch`."""
+    if s.T.is_cuda:
+        lm_iteration_cuda(s)
+    else:
+        lm_iteration_torch(s)
+
+
+def lm_iteration_torch(s: LMState) -> None:
+    """:func:`lm_iteration` in plain PyTorch, on any device: the version
+    the CPU tests hold against the JAX package and the card holds the
+    kernel against."""
     p = s.problem
     active = _active(s.done, s.it, p.max_iterations)
     c, dxi, df, dg, gain_den = p.build_and_solve(s.T, s.f, s.g, s.lam)
@@ -506,6 +535,121 @@ def lm_iteration(s: LMState) -> None:
     s.it.copy_(s.it + active.to(torch.int32))
     s.done.copy_(torch.where(active, done_n, s.done))
     s.active_any.copy_(_any_active(s.done, s.it, p.max_iterations))
+
+
+class _LMArgs(ctypes.Structure):
+    """``SdplFlowPoseLM`` of csrc/flow_pose_lm.cu."""
+    _fields_ = ([(n, ctypes.c_void_p) for n in (
+        "Xw", "p_obs", "p_flow0", "p_valid", "Xs", "Xe", "l_obs", "l_flow0",
+        "l_valid", "delta_line", "T", "f", "g", "cost", "lam", "nu", "it",
+        "done", "active_any", "f_try", "g_try", "ticket")]
+        + [(n, ctypes.c_int) for n in (
+            "B", "N", "M", "max_iterations", "use_lines")]
+        + [(n, ctypes.c_float) for n in (
+            "fx", "fy", "cx", "cy", "proj_info", "flow_prior_info",
+            "line_proj_info", "line_prior_info", "delta_mono", "rel_tol")])
+
+
+@functools.lru_cache(maxsize=1)
+def _lm_kernel():
+    """(``sdpl_flow_pose_lm_iteration``, most threads a lane,
+    ``sdpl_flow_pose_lm_runs``) from csrc/flow_pose_lm.cu, built at first
+    use."""
+    from ..utils import cuda_build
+
+    lib = cuda_build.load("flow_pose_lm.cu")
+    fn = lib.sdpl_flow_pose_lm_iteration
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.POINTER(_LMArgs), ctypes.c_int, ctypes.c_void_p]
+    lib.sdpl_flow_pose_lm_max_threads.restype = ctypes.c_int
+    runs = lib.sdpl_flow_pose_lm_runs
+    runs.restype = ctypes.c_int
+    runs.argtypes = [ctypes.POINTER(ctypes.c_ulonglong)]
+    return fn, lib.sdpl_flow_pose_lm_max_threads(), runs
+
+
+def lm_kernel_runs(device=None) -> int:
+    """How many times the kernel of :func:`lm_iteration_cuda` has run on
+    ``device`` (the current CUDA device by default), counted by the kernel
+    itself: one a body run, launched from the host or replayed by a
+    graph.  Synchronises the device first; 0 before the kernel is
+    built."""
+    if _lm_kernel.cache_info().currsize == 0:
+        return 0
+    runs = ctypes.c_ulonglong(0)
+    with torch.cuda.device(device):
+        torch.cuda.synchronize()
+        err = _lm_kernel()[2](ctypes.byref(runs))
+    if err != 0:
+        raise RuntimeError("flow_pose_lm.cu: reading the run count failed: "
+                           "cudaError_t %d" % err)
+    return runs.value
+
+
+def lm_iteration_cuda(s: LMState) -> None:
+    """:func:`lm_iteration` on the card: one launch of
+    ``csrc/flow_pose_lm.cu`` for every lane (a block a lane, its threads
+    striding over the lane's lines and points, as many as those but at
+    most 512), on the current stream, counted in
+    ``lm_iteration_cuda.launches`` on the host (a captured call once a
+    replay of its graph, through a ``GraphRecorder``'s counters, however
+    many times a WHILE node runs it) and by the kernel itself
+    (:func:`lm_kernel_runs`).  It reads nothing back, so a loop
+    body of it captures as one kernel node.  Every tensor of the state
+    and the problem must lie on one CUDA device, contiguous, in float32
+    (bool masks and flags, int32 ``it``); anything else raises."""
+    p = s.problem
+    B, N = p.points.obs.shape[:2]
+    M = p.lines.obs.shape[1]
+    f32, b8 = torch.float32, torch.bool
+    want = (
+        ("Xw", p.Xw, f32, (B, N, 3)), ("p_obs", p.points.obs, f32, (B, N, 2)),
+        ("p_flow0", p.points.flow0, f32, (B, N, 2)),
+        ("p_valid", p.points.valid, b8, (B, N)),
+        ("Xs", p.Xw_s, f32, (B, M, 3)), ("Xe", p.Xw_e, f32, (B, M, 3)),
+        ("l_obs", p.lines.obs, f32, (B, M, 4)),
+        ("l_flow0", p.lines.flow0, f32, (B, M, 4)),
+        ("l_valid", p.lines.valid, b8, (B, M)),
+        ("delta_line", p.delta_line, f32, (B, 1)),
+        ("T", s.T, f32, (B, 4, 4)), ("f", s.f, f32, (B, N, 2)),
+        ("g", s.g, f32, (B, M, 4)), ("cost", s.cost, f32, (B,)),
+        ("lam", s.lam, f32, (B,)), ("nu", s.nu, f32, (B,)),
+        ("it", s.it, torch.int32, (B,)), ("done", s.done, b8, (B,)),
+        ("active_any", s.active_any, b8, ()),
+        ("f_try", s.f_try, f32, (B, N, 2)), ("g_try", s.g_try, f32, (B, M, 4)),
+        ("ticket", s.ticket, torch.int32, ()))
+    dev = s.T.device
+    if dev.type != "cuda":
+        raise ValueError("lm_iteration_cuda: the state lies on %s" % dev)
+    for name, t, dtype, shape in want:
+        if t is None or t.device != dev:
+            raise ValueError("lm_iteration_cuda: %s on %s, the state on %s"
+                             % (name, None if t is None else t.device, dev))
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError("lm_iteration_cuda: %s is %s %s, wants %s %s"
+                             % (name, t.dtype, tuple(t.shape), dtype, shape))
+        if not t.is_contiguous():
+            raise ValueError("lm_iteration_cuda: %s is not contiguous" % name)
+    fn, most, _ = _lm_kernel()
+    items = N + (M if p.use_lines else 0)
+    threads = min(most, max(32, -(-items // 32) * 32))
+    args = _LMArgs(*[t.data_ptr() for _, t, _, _ in want], B, N, M,
+                   int(p.max_iterations), int(bool(p.use_lines)),
+                   *(float(x) for x in (
+                       p.K.fx, p.K.fy, p.K.cx, p.K.cy, p.proj_info,
+                       p.flow_prior_info, p.line_proj_info,
+                       p.line_prior_info, p.delta_mono, p.rel_tol)))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(ctypes.byref(args), threads, stream)
+    if err != 0:
+        raise RuntimeError("flow_pose_lm.cu launch failed: cudaError_t %d "
+                           "(B %d, N %d, M %d, %d threads)"
+                           % (err, B, N, M, threads))
+    lm_iteration_cuda.launches += 1
+
+
+lm_iteration_cuda.launches = 0
 
 
 def lm_run(s: LMState) -> LMState:

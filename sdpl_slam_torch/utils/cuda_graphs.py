@@ -40,6 +40,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import ctypes
+import gc
 from typing import Callable
 
 import torch
@@ -267,13 +268,20 @@ class GraphRecorder:
 
     ``counters`` are (object, attribute) pairs of host counters that the
     captured code bumps; their capture-time gains are taken back and
-    replayed by every :meth:`StitchedGraph.launch`."""
+    replayed by every :meth:`StitchedGraph.launch`.
+
+    Python's cyclic garbage collector is paused while the recorder is
+    open: a cycle collected mid-capture frees what it holds, and a
+    dropped graph's destructor (``cudaGraphExecDestroy``) is a call that
+    invalidates a capture in progress.  Captures that followed dropped
+    graphs failed so on an H100 (PERF.md)."""
 
     def __init__(self, counters=()):
         self.pool = torch.cuda.graph_pool_handle()
         self._seqs = [[]]                 # the open sequences, outermost first
         self._cur = None
         self._counters = [(o, a, getattr(o, a)) for o, a in counters]
+        self._gc = False
 
     @property
     def items(self):
@@ -290,20 +298,26 @@ class GraphRecorder:
         self._seqs[-1].append(("seg", g))
 
     def __enter__(self):
+        self._gc = gc.isenabled()
+        gc.disable()
         self._begin_segment()
         return self
 
     def __exit__(self, exc_type, exc, tb):
-        if exc_type is not None:
-            if self._cur is not None:
-                try:
-                    self._cur.capture_end()
-                except RuntimeError:
-                    pass
-                self._cur = None
+        try:
+            if exc_type is not None:
+                if self._cur is not None:
+                    try:
+                        self._cur.capture_end()
+                    except RuntimeError:
+                        pass
+                    self._cur = None
+                return False
+            self._end_segment()
             return False
-        self._end_segment()
-        return False
+        finally:
+            if self._gc:
+                gc.enable()
 
     def loop(self, body, flag: torch.Tensor):
         """``while flag: body()`` as a WHILE node: closes the segment,

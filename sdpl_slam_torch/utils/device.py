@@ -64,12 +64,18 @@ def copy_in(buffers: dict, arrays: dict) -> None:
     """Copy host arrays into the device buffers of the same names: on the
     card from a fresh pinned copy each, non-blocking (the caching host
     allocator keeps the pinned block until the copy has run, so the next
-    frame's copy cannot overwrite it first)."""
+    frame's copy cannot overwrite it first).  NumPy fills the pinned
+    block on the calling thread: ``Tensor.pin_memory()`` copies a frame's
+    image with an OpenMP parallel region, whose idle workers then spin on
+    the host's cores and slow the tracking loop's own thread."""
     for name, a in arrays.items():
-        t = torch.from_numpy(np.ascontiguousarray(a))
+        a = np.ascontiguousarray(a)
+        t = torch.from_numpy(a)
         dst = buffers[name]
         if dst.is_cuda:
-            dst.copy_(t.pin_memory(), non_blocking=True)
+            pinned = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            np.copyto(pinned.numpy(), a)
+            dst.copy_(pinned, non_blocking=True)
         else:
             dst.copy_(t)
 

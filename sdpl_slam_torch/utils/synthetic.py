@@ -591,3 +591,51 @@ def synth_big_graph(F: int = 120, stat_per_frame: int = 150,
     )
     n_edges = len(sp_cam) + len(dp_cam) + len(cur) + len(smo_i) + F - 1
     return g, n_edges
+
+
+def flow_pose_lanes(seed: int, n: int, m: int, motions=(1.0,),
+                    device="cpu"):
+    """Seeded lanes of the joint flow+pose LM at KITTI intrinsics, one a
+    motion scale in ``motions``: last-frame pixels and depths of ``n``
+    points and ``m`` segments, their measured flow through a small rigid
+    motion (scaled) plus 0.3 px noise and 10 % gross outliers, 10 %
+    padding (the draws of ``tests/test_torch_lm_exit.py``'s problems, in
+    numpy and this package's ``lie``).  -> (T_init (B, 4, 4) identities,
+    PointBundle, LineBundle, Intrinsics) on ``device``."""
+    from ..ops.geometry import Intrinsics
+    from ..solvers.frame_solvers import LineBundle, PointBundle
+
+    K = Intrinsics(721.5377, 721.5377, 609.5593, 172.8540)
+    k64 = np.array([721.5377, 721.5377, 609.5593, 172.8540])
+    rng = np.random.default_rng(seed)
+    lanes = []
+    for mo in motions:
+        xi = rng.normal(size=6) * np.array([0.01, 0.01, 0.01, 0.2, 0.05, 0.5])
+        T = lie.se3_exp(torch.from_numpy((xi * mo).astype(np.float32)))
+        T = T.numpy().astype(np.float64)
+
+        def flow_of(uv, z):
+            x = (uv[:, 0] - k64[2]) * z / k64[0]
+            y = (uv[:, 1] - k64[3]) * z / k64[1]
+            X = np.stack([x, y, z], 1) @ T[:3, :3].T + T[:3, 3]
+            p = np.stack([k64[0] * X[:, 0] / X[:, 2] + k64[2],
+                          k64[1] * X[:, 1] / X[:, 2] + k64[3]], 1)
+            f = p - uv + rng.normal(0, 0.3, uv.shape)
+            bad = rng.random(len(uv)) < 0.1
+            f[bad] += rng.uniform(-20, 20, (bad.sum(), 2))
+            return f.astype(np.float32)
+
+        obs = rng.uniform([40, 40], [1200, 335], (n, 2)).astype(np.float32)
+        depth = rng.uniform(4, 30, n).astype(np.float32)
+        flow0 = flow_of(obs, depth)
+        lobs = rng.uniform([40, 40, 40, 40], [1200, 335, 1200, 335],
+                           (m, 4)).astype(np.float32)
+        ldepth = rng.uniform(4, 30, (m, 2)).astype(np.float32)
+        lflow0 = np.concatenate([flow_of(lobs[:, :2], ldepth[:, 0]),
+                                 flow_of(lobs[:, 2:], ldepth[:, 1])], 1)
+        lanes.append([obs, flow0, depth, rng.random(n) > 0.1,
+                      lobs, lflow0, ldepth, rng.random(m) > 0.1])
+    arrs = [torch.from_numpy(np.stack(parts)).to(device)
+            for parts in zip(*lanes)]
+    T0 = torch.eye(4, device=device).repeat(len(motions), 1, 1)
+    return T0, PointBundle(*arrs[:4]), LineBundle(*arrs[4:]), K

@@ -9,8 +9,9 @@ programs against their eager plain versions, the host path's
 fused-frame and detector programs' graphs against their eager twins,
 without a synchronising call or an LM host read, and the chained step's
 and the non-joint frame's graphs against their eager twins, likewise;
-the flagship entry on the card against the CPU; and the bench's
-device-exec probe leaving the chained program as it found it.
+the flagship entry on the card against the CPU; the bench's
+device-exec probe leaving the chained program as it found it; and the
+host-to-card copies of ``utils.device.copy_in``.
 Skipped where there is no card.  This file imports no JAX, so it runs on
 a machine without it:
 
@@ -111,6 +112,37 @@ def test_wrapper_refuses_bad_cuda_input(cuda):
         tf.fast_score_pyramid([img.t()], 20.0, 7.0)
     with pytest.raises(ValueError):
         tf.fast_score_pyramid([img, img.cpu()], 20.0, 7.0)
+
+
+@pytest.mark.gpu
+def test_copy_in_on_card(cuda):
+    """``utils.device.copy_in`` (NumPy fills a pinned block, then a
+    non-blocking copy): every array lands in its buffer as a blocking
+    copy puts it there, cast to the buffer's dtype, also when the source
+    is not contiguous, and the next call's arrays do not overwrite the
+    last call's before its copy ran."""
+    from sdpl_slam_torch.utils.device import copy_in
+
+    rng = np.random.default_rng(0)
+    arrays = [dict(img=rng.integers(0, 256, (375, 1242), np.uint8),
+                   vec=rng.standard_normal(186002).astype(np.float32),
+                   flow=rng.standard_normal((40, 30, 2))[:, ::2],
+                   ok=rng.random(7) < 0.5) for _ in range(2)]
+    bufs = [dict(img=torch.empty((375, 1242), dtype=torch.uint8,
+                                 device=cuda),
+                 vec=torch.empty(186002, device=cuda),
+                 flow=torch.empty((40, 15, 2), device=cuda),
+                 ok=torch.empty(7, dtype=torch.bool, device=cuda))
+            for _ in range(2)]
+    torch.cuda._sleep(2 ** 26)          # both copies queue behind it
+    for b, a in zip(bufs, arrays):
+        copy_in(b, a)
+    torch.cuda.synchronize()
+    for b, a in zip(bufs, arrays):
+        for k, v in a.items():
+            want = torch.as_tensor(np.ascontiguousarray(v)).to(
+                cuda, b[k].dtype)
+            assert torch.equal(b[k], want), k
 
 
 @pytest.mark.gpu

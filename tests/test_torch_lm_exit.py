@@ -249,3 +249,29 @@ def test_graph_program_refuses_the_cpu():
                                 device="cpu")
     with pytest.raises(RuntimeError, match="CUDA device"):
         res.ResidentProgram(lambda *a: None, state, {}, 1, "cpu", graph=True)
+
+
+def test_cpu_body_never_reaches_the_kernel(monkeypatch):
+    """On CPU tensors ``lm_iteration`` is the plain PyTorch body: with the
+    kernel build made to raise it still runs, bit for bit as
+    ``lm_iteration_torch``, and launches nothing."""
+    from sdpl_slam_torch.utils import cuda_build
+    from sdpl_slam_torch.utils.synthetic import flow_pose_lanes
+
+    def refuse(*args, **kw):
+        raise AssertionError("the CPU path reached the CUDA kernel's build")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    monkeypatch.setattr(cuda_build, "build", refuse)
+    T0, pts, lns, K = flow_pose_lanes(9, 60, 12, (1.0, 0.2))
+    a, b = (tfs.lm_init(T0, torch.eye(4), pts, lns, K, **OBJ)
+            for _ in range(2))
+    assert a.ticket is None and a.f_try is None
+    launches = tfs.lm_iteration_cuda.launches
+    for _ in range(3):
+        tfs.lm_iteration(a)
+        tfs.lm_iteration_torch(b)
+    for k in ("T", "f", "g", "cost", "lam", "nu", "it", "done",
+              "active_any"):
+        assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert tfs.lm_iteration_cuda.launches == launches
