@@ -22,7 +22,13 @@
    same call on the CPU (set-level match of the segments, gated), its
    device and wall time, its kernel launches under torch.profiler, and
    its recall of the generator's structure lines.  Fails if the detector
-   finds nothing on an image that has strokes.
+   finds nothing on an image that has strokes.  Then the line kernels
+   (``csrc/line_detect.cu``: the NFA gate and the tile merge rounds) at
+   both benchmark cells' frame sizes (1242x375, 640x480) and octaves
+   against their plain chains on the card (the merge bit for bit), their
+   device times beside their bounds and the plain chains', and the line
+   stage's captured graph built with the plain chains and with the
+   kernels: nodes, device ms and the kernels' launches a replay.
 4. Disk phase, the main path at full width and depth: 37 KITTI-scale
    synthetic frames (the JAX bench's sequence: 1242x375, 2 moving
    objects, 0.2 px flow noise) are written to a temporary directory in
@@ -163,7 +169,7 @@ import tempfile
 import time
 
 CUDA_SOURCES = ("fast_score.cu", "graph_while.cu",  # built at start
-                "flow_pose_lm.cu")
+                "flow_pose_lm.cu", "line_detect.cu")
 N_FRAMES = 36          # tracked from disk on the card
 LBA_FRAMES = (19, 35)  # window BA (window 20, overlap 4); global BA at 35
 N_CPU_CHECK = 3        # of those, also run on the CPU as the reference
@@ -660,7 +666,13 @@ def lines_phase(seq, line_cfg):
             def run():
                 return lines.detect_lines(card, cfg)
 
+            counts = line_kernel_counts()
             on_card = _compact(run())
+            kernel_launches = line_kernel_counts(counts)
+            if kernel_launches != (cfg.n_octaves, cfg.n_octaves):
+                failures.append("frame %d mode %d: (NFA, merge) kernel "
+                                "launches %s for %d octaves" % (
+                                    t, mode, kernel_launches, cfg.n_octaves))
             on_cpu = _compact(lines.detect_lines(host, cfg))
             if not len(on_card):
                 raise AssertionError(
@@ -701,9 +713,239 @@ def lines_phase(seq, line_cfg):
                 cpu=len(on_cpu), fwd=fwd, back=back, along=along,
                 recall=recall,
                 wall_ms=sorted(walls)[2], launches=launches,
+                kernel_launches=kernel_launches,
                 kernels=len(dev),
                 busy_ms=sum(us for _, us in dev) / 1e3))
     return rows, failures
+
+
+# line kernels phase: the two cells' frame sizes; float ops of the NFA
+# kernel a candidate (counted from csrc/line_detect.cu: 72 samples'
+# lookups and tests, ~14 each; a subset's prefactor, ~30, and 64 Lentz
+# steps of ~34) and its bytes (the candidate's 4 floats, 72 x 2 gathered
+# gradients, 15 floats out); the merge kernel's float ops a tile a pass
+# at most (the gates, ~71, and the merge, ~75, of an even slot) and its
+# bytes (a tile's 4 floats and flag read and written once)
+LINE_KERNEL_SHAPES = (("kitti", 1242, 375), ("omd", 640, 480))
+NFA_OPS_CAND = 72 * 14 + 7 * (30 + 64 * 34)
+NFA_BYTES_CAND = 4 * (4 + 72 * 2 + 15)
+MERGE_OPS_TILE_PASS = 71 + 75
+MERGE_BYTES_TILE = 2 * 17
+LINE_KERNEL_REPS = 200    # events around each launch, median
+LINE_PLAIN_REPS = 20      # replays of the plain chain's graph, median
+
+
+def line_kernel_counts(since=(0, 0)):
+    """(NFA, merge) launches of the line detector's two kernels, less
+    ``since``."""
+    from sdpl_slam_torch.ops import lines
+
+    return (lines.nfa_significance_cuda.launches - since[0],
+            lines.merge_rounds_cuda.launches - since[1])
+
+
+def _check_line_launches(got, cfg, n_detects, what):
+    """Raises unless ``got`` (NFA, merge launches) is one launch of each
+    kernel an octave of each of ``n_detects`` ``detect_lines(..., cfg)``
+    calls (none of a kernel whose stage ``cfg`` turns off)."""
+    n = n_detects * max(1, cfg.n_octaves)
+    want = (n if cfg.nfa_gate else 0, n if cfg.merge_rounds > 0 else 0)
+    if tuple(got) != want:
+        raise AssertionError("%s: (NFA, merge) kernel launches %s for %d "
+                             "line detections of %d octaves, %s expected"
+                             % (what, tuple(got), n_detects, cfg.n_octaves,
+                                want))
+
+
+def line_stage_calls(img, cfg):
+    """One ``detect_lines(img, cfg)`` with the plain chains, recording
+    what the main path hands the two kernels at each octave: a dict an
+    octave of its ``cfg``, the merge's input ``seg`` and ``ok`` and its
+    output ``merged`` (seg, ok), and the NFA gate's ``flat`` candidates and
+    ``gx``, ``gy`` gradients."""
+    from unittest import mock
+
+    from sdpl_slam_torch.ops import lines
+
+    merges, gates = [], []
+
+    def merge(seg, ok, ocfg):
+        out = lines._merge_rounds_torch(seg, ok, ocfg)
+        merges.append(dict(cfg=ocfg, seg=seg, ok=ok, merged=out))
+        return out
+
+    def nfa(uv4, gx, gy, ocfg):
+        gates.append(dict(flat=uv4, gx=gx, gy=gy))
+        return lines._nfa_significance_torch(uv4, gx, gy, ocfg)
+
+    with mock.patch.object(lines, "_merge_rounds", merge), \
+            mock.patch.object(lines, "_nfa_significance", nfa):
+        lines.detect_lines(img, cfg)
+    if not len(merges) == len(gates) == max(1, cfg.n_octaves):
+        raise AssertionError("detect_lines ran %d merges and %d NFA gates "
+                             "for %d octaves" % (len(merges), len(gates),
+                                                 cfg.n_octaves))
+    return [dict(m, **g) for m, g in zip(merges, gates)]
+
+
+def _graph_of(fn):
+    """``fn`` captured into a CUDA graph after one eager warm-up."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    return graph
+
+
+def _line_stage_program(img, cfg, plain):
+    """A captured detector program of the line stage alone over ``img``
+    (not the memoized one), built with the plain chains patched in where
+    ``plain``; returns it after one replay."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+
+    from sdpl_slam_torch.models import frame_program as fp
+    from sdpl_slam_torch.ops import lines
+
+    dev = img.device
+    stream = fp.detector_stream(dev)
+    patches = contextlib.ExitStack()
+    if plain:
+        patches.enter_context(mock.patch.object(
+            lines, "_nfa_significance", lines._nfa_significance_torch))
+        patches.enter_context(mock.patch.object(
+            lines, "_merge_rounds", lines._merge_rounds_torch))
+    h, w = img.shape
+    with patches, torch.cuda.stream(stream):
+        prog = fp.DetectorProgram(
+            [fp._line_stage(cfg)], {"img": ((h, w), img.dtype)},
+            [5 * lines.n_segments(h, w, cfg)], dev, graph=True,
+            stream=stream, kinds=["detector.lines"])
+        prog.load({"img": img.cpu().numpy()})
+        prog.run_stage(0)                       # capture, then launch
+    torch.cuda.synchronize()
+    return prog
+
+
+def line_kernels_phase(line_cfg, kitti_gray):
+    """The line detector's two kernels (csrc/line_detect.cu) at both
+    cells' frame sizes and both octaves, on a synthetic frame with
+    structure lines: against the plain chains on the card (the merge bit
+    for bit; the NFA gate's counts equal, its significance within 1e-4),
+    each kernel's device time (CUDA events around each of 200 launches,
+    median) beside its bound and the plain chain's (one graph of it,
+    events around each of 20 replays, median); then the line stage's
+    captured graph built with the plain chains and with the kernels:
+    nodes, ms a replay (events around each of 20, median), the host's ms
+    a launch call (median of 20), the kernels' launches a replay.  Returns (kernel rows, stage rows); raises on a
+    mismatch."""
+    import torch
+
+    from sdpl_slam_torch.models import frame_program as fp
+    from sdpl_slam_torch.ops import lines
+    from sdpl_slam_torch.utils.synthetic import SynthConfig, SynthSequence
+
+    dev = torch.device("cuda")
+    grays = {"kitti": kitti_gray, "omd": SynthSequence(SynthConfig(
+        width=640, height=480, cx=320.0, cy=240.0, n_frames=1,
+        n_objects=4)).frame(0).gray}
+    rows, stages = [], []
+    none = lambda: None                                      # noqa: E731
+    for name, w, h in LINE_KERNEL_SHAPES:
+        img = torch.from_numpy(grays[name]).to(dev)
+        assert tuple(img.shape) == (h, w)
+        cfg = line_cfg._replace(min_length=max(8.0, 0.02 * min(w, h)))
+        for o, c in enumerate(line_stage_calls(img, cfg)):
+            ocfg, seg, ok, ref = c["cfg"], c["seg"], c["ok"], c["merged"]
+            flat, gx, gy = c["flat"], c["gx"], c["gy"]
+            got = lines.merge_rounds_cuda(seg, ok, ocfg)
+            if not (torch.equal(got[0], ref[0])
+                    and torch.equal(got[1], ref[1])):
+                raise AssertionError("line kernels, %s octave %d: merge "
+                                     "kernel != plain chain" % (name, o))
+            rb, rk, rn = lines._nfa_significance_torch(flat, gx, gy, ocfg)
+            kb, kk, kn = lines.nfa_significance_cuda(flat, gx, gy, ocfg)
+            fin = torch.isfinite(rb)
+            nfa_err = (float((kb[fin] - rb[fin]).abs().max()) if fin.any()
+                       else 0.0)
+            if not (torch.equal(kk, rk) and torch.equal(kn, rn)
+                    and torch.equal(torch.isfinite(kb), fin)
+                    and nfa_err <= 1e-4):
+                raise AssertionError("line kernels, %s octave %d: NFA kernel "
+                                     "against plain chain (max err %g)"
+                                     % (name, o, nfa_err))
+            gh, gw = ok.shape
+            N, passes = gh * gw, 4 * ocfg.merge_rounds
+            merge = (lambda s=seg, k=ok, c=ocfg:
+                     lines.merge_rounds_cuda(s, k, c))
+            nfa = (lambda f=flat, a=gx, b=gy, c=ocfg:
+                   lines.nfa_significance_cuda(f, a, b, c))
+            merge_plain = _graph_of(lambda s=seg, k=ok, c=ocfg:
+                                    lines._merge_rounds_torch(s, k, c))
+            nfa_plain = _graph_of(lambda f=flat, a=gx, b=gy, c=ocfg:
+                                  lines._nfa_significance_torch(f, a, b, c))
+            for kname, fn, plain, bts, ops in (
+                    ("merge_rounds", merge, merge_plain, N * MERGE_BYTES_TILE,
+                     N // 2 * passes * MERGE_OPS_TILE_PASS),
+                    ("nfa_significance", nfa, nfa_plain, N * NFA_BYTES_CAND,
+                     N * NFA_OPS_CAND)):
+                dev_ms = _device_ms(fn, reps=LINE_KERNEL_REPS, prepare=none,
+                                    median=True)
+                plain_ms = _device_ms(plain.replay, reps=LINE_PLAIN_REPS,
+                                      prepare=none, median=True)
+                bound_ms = max(bts / HBM_BYTES_PER_S,
+                               ops / FP32_OPS_PER_S) * 1e3
+                rows.append(dict(
+                    kernel=kname, shape=name, octave=o, grid=(gh, gw),
+                    kept=int(ref[1].sum()), tiles_ok=int(ok.sum()),
+                    dev_us=dev_ms * 1e3, plain_us=plain_ms * 1e3,
+                    bytes=bts, ops=ops, bound_us=bound_ms * 1e3,
+                    bound_by=("bytes" if bts / HBM_BYTES_PER_S
+                              >= ops / FP32_OPS_PER_S else "operations"),
+                    # the merge is compared bit for bit, else it raised
+                    max_err=nfa_err if kname == "nfa_significance" else 0.0))
+        for plain in (True, False):
+            prog = _line_stage_program(img, cfg, plain)
+            stream = fp.detector_stream(dev)
+            counts = line_kernel_counts()
+            with torch.cuda.stream(stream):
+                prog.run_stage(0)
+                got = line_kernel_counts(counts)
+                # events around each replay: a queue of replays of a
+                # graph this size fills the card's launch queue
+                ms = _median_ms(lambda p=prog: p.run_stage(0),
+                                reps=LINE_PLAIN_REPS)
+                # the host's side of a replay (the graph's launch call, as
+                # the chained loop's detector dispatch makes it), the card
+                # idle before each
+                host = []
+                for _ in range(LINE_PLAIN_REPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prog.run_stage(0)
+                    host.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            want = (0, 0) if plain else (cfg.n_octaves, cfg.n_octaves)
+            if got != want:
+                raise AssertionError("line kernels, %s: a replay of the "
+                                     "line stage (%s) launched %s (NFA, "
+                                     "merge)" % (name, "plain" if plain
+                                                 else "kernels", got))
+            stages.append(dict(shape=name, plain=plain,
+                               nodes=sum(prog.node_counts[0]),
+                               capture_s=prog.capture_s, dev_ms=ms,
+                               host_ms=sorted(host)[len(host) // 2],
+                               launches=got))
+    return rows, stages
 
 
 def write_disk_sequence(seq, root):
@@ -850,6 +1092,7 @@ def disk_phase(root, out_dir):
     replays = {}
     torch.cuda.reset_peak_memory_stats()
     fast.fast_score_pyramid.launches = 0
+    line_launches = line_kernel_counts()
     lm_runs = fs.lm_kernel_runs()
     system.tracker.lm_host_syncs = 0
     captures = (fp.FrameProgram.captures, fp.DetectorProgram.captures)
@@ -888,6 +1131,7 @@ def disk_phase(root, out_dir):
     finally:
         pf.close()
     launches = fast.fast_score_pyramid.launches
+    line_launches = line_kernel_counts(line_launches)
     lm_runs = fs.lm_kernel_runs() - lm_runs
     syncs = system.tracker.lm_host_syncs
     peak = torch.cuda.max_memory_allocated()
@@ -903,6 +1147,8 @@ def disk_phase(root, out_dir):
     if len(line_ms) != N_FRAMES:
         raise AssertionError("the line detector ran %d times for %d frames"
                              % (len(line_ms), N_FRAMES))
+    _check_line_launches(line_launches, system.tracker._line_cfg(), N_FRAMES,
+                         "disk path")
     runs = system.tracker.ba_runs
     want = [("local", f) for f in LBA_FRAMES] + [("global", N_FRAMES - 1)]
     if [(r["kind"], r["frame"]) for r in runs] != want:
@@ -926,8 +1172,9 @@ def disk_phase(root, out_dir):
                 before_window=before_window, before_motions=before_motions,
                 frame_ms=frame_ms, wait_ms=wait_ms, load_ms=load_ms,
                 line_ms=line_ms, detect_ms=_span_ms(spans, "detector.run"),
-                n_lines=n_lines, launches=launches, lm_runs=lm_runs,
-                syncs=syncs, peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
+                n_lines=n_lines, launches=launches,
+                line_launches=line_launches, lm_runs=lm_runs, syncs=syncs,
+                peak=peak, rpe=rpe, n_obj=n_obj, ba_runs=runs,
                 decoder=png_decoder(), captures=captures, loads=loads.rows)
 
 
@@ -1787,10 +2034,12 @@ def bench_phase():
     before = bench.captures()
     torch.cuda.synchronize()
     fast.fast_score_pyramid.launches = 0
+    line_launches = line_kernel_counts()
     lm_runs = fs.lm_kernel_runs()
     t0 = time.perf_counter()
     out = bench.run(cfg, settings, passes=1, device="cuda", systems=systems)
     launches = fast.fast_score_pyramid.launches
+    line_launches = line_kernel_counts(line_launches)
     lm_runs = fs.lm_kernel_runs() - lm_runs
     seconds = time.perf_counter() - t0
     system = systems[0]
@@ -1806,6 +2055,10 @@ def bench_phase():
         failures.append("value %s on %s" % (out["value"], out["platform"]))
     if launches != n:
         failures.append("%d FAST launches for %d frames" % (launches, n))
+    try:
+        _check_line_launches(line_launches, tr._line_cfg(), n, "bench")
+    except AssertionError as e:
+        failures.append(str(e))
     if tr.lm_host_syncs:
         failures.append("%d LM host reads" % tr.lm_host_syncs)
     if len(system.map.lba_times) != 3:
@@ -1819,8 +2072,8 @@ def bench_phase():
     if failures:
         raise AssertionError("bench phase: " + "; ".join(failures))
     sections = {k: float(sorted(v)[len(v) // 2]) for k, v in perf.items()}
-    return dict(out=out, n=n, launches=launches, lm_runs=lm_runs,
-                seconds=seconds,
+    return dict(out=out, n=n, launches=launches, line_launches=line_launches,
+                lm_runs=lm_runs, seconds=seconds,
                 ba_runs=tr.ba_runs, sections=sections,
                 captures={k: v - before[k]
                           for k, v in bench.captures().items()})
@@ -2781,16 +3034,41 @@ def main():
               line_cfg.n_octaves, line_cfg.max_lines, line_cfg.min_length,
               LINE_MATCH_PX))
     print("  frame mode strokes card cpu  card->cpu cpu->card along recall  "
-          "wall_ms launches kernels device_ms")
+          "wall_ms launches kernels device_ms (NFA, merge) launches")
     rows, failures = lines_phase(seq, line_cfg)
     for r in rows:
         print("  %5d %4d %7d %4d %3d  %9.3f %9.3f %5.3f %6.3f  %7.2f %8d %7d "
-              "%9.3f" % (r["frame"], r["mode"], r["strokes"], r["card"],
-                         r["cpu"], r["fwd"], r["back"], r["along"],
-                         r["recall"], r["wall_ms"], r["launches"],
-                         r["kernels"], r["busy_ms"]))
+              "%9.3f %s" % (r["frame"], r["mode"], r["strokes"], r["card"],
+                            r["cpu"], r["fwd"], r["back"], r["along"],
+                            r["recall"], r["wall_ms"], r["launches"],
+                            r["kernels"], r["busy_ms"], r["kernel_launches"]))
     if failures:
         raise AssertionError("lines phase: " + "; ".join(failures))
+    t0 = time.perf_counter()
+    krows, stages = line_kernels_phase(line_cfg, seq.frame(0).gray)
+    print("line kernels (csrc/line_detect.cu) against the plain chains on "
+          "the card, frame 0 of each cell's size: merge == plain bit for "
+          "bit, NFA counts equal; device = CUDA events around each of %d "
+          "launches, median; plain = one graph of the chain, events around "
+          "each of %d replays, median; %s (%.1f s)" % (
+              LINE_KERNEL_REPS, LINE_PLAIN_REPS, smi,
+              time.perf_counter() - t0))
+    print("  kernel            shape oct  grid     ok->kept  kernel_us  "
+          "plain_us  speed-up  bound_us (by)  max err")
+    for r in krows:
+        print("  %-17s %-5s %3d  %3dx%-4d %4d->%-4d %9.2f %9.1f %8.1fx "
+              "%9.4f (%s) %.3g" % (
+                  r["kernel"], r["shape"], r["octave"], r["grid"][0],
+                  r["grid"][1], r["tiles_ok"], r["kept"], r["dev_us"],
+                  r["plain_us"], r["plain_us"] / r["dev_us"], r["bound_us"],
+                  r["bound_by"], r["max_err"]))
+    for r in stages:
+        print("  line stage graph, %s, %s: %d nodes, captured in %.2f s, "
+              "%.3f ms a replay (events around each), %.3f ms of the host's "
+              "a launch (median of %d), (NFA, merge) launches a replay %s"
+              % (r["shape"], "plain chains" if r["plain"] else "kernels",
+                 r["nodes"], r["capture_s"], r["dev_ms"], r["host_ms"],
+                 LINE_PLAIN_REPS, r["launches"]))
 
     with tempfile.TemporaryDirectory() as work:
         root, out_dir = os.path.join(work, "seq"), os.path.join(work, "out")
@@ -2836,11 +3114,13 @@ def main():
             raise AssertionError("disk phase: %d BA programs captured "
                                  "(at most %d expected)"
                                  % (caps, MAX_DISK_CAPTURES))
-        print("  FAST kernel launches %d (%d per frame), joint-LM kernel "
-              "runs %d (its own count), LM host syncs %d, peak device "
-              "memory %.1f MiB" % (
+        print("  FAST kernel launches %d (%d per frame), line kernels' "
+              "(NFA, merge) launches %s (one an octave a frame), joint-LM "
+              "kernel runs %d (its own count), LM host syncs %d, peak "
+              "device memory %.1f MiB" % (
                   res["launches"], res["launches"] // N_FRAMES,
-                  res["lm_runs"], res["syncs"], res["peak"] / 2 ** 20))
+                  res["line_launches"], res["lm_runs"], res["syncs"],
+                  res["peak"] / 2 ** 20))
         hp = host_programs_phase(res["loads"])
         print("  [%s] host-path programs captured in the phase: %d fused "
               "frame (one per object-lane count and line mode), %d detector"
@@ -3134,11 +3414,13 @@ def main():
         print("bench phase: python -m sdpl_slam_torch.bench's run for one "
               "pass (%d KITTI-scale frames in the chained loop, windows at "
               "19 / 35 / 51, nothing injected) in %.1f s; FAST launches %d (1 "
-              "a frame), joint-LM kernel runs %d (its own count, the probe's "
-              "included), 0 LM host reads, captures %s; the device-exec "
-              "probe put the chained program back bit for bit and captured "
-              "nothing" % (bp["n"], bp["seconds"], bp["launches"],
-                           bp["lm_runs"], bp["captures"]))
+              "a frame), line kernels' (NFA, merge) launches %s (one an "
+              "octave a frame), joint-LM kernel runs %d (its own count, the "
+              "probe's included), 0 LM host reads, captures %s; the "
+              "device-exec probe put the chained program back bit for bit "
+              "and captured nothing" % (
+                  bp["n"], bp["seconds"], bp["launches"],
+                  bp["line_launches"], bp["lm_runs"], bp["captures"]))
         print("  [%s] section medians over %d chained frames (ms): %s" % (
             smi, bp["n"] - 1, ", ".join("%s %.3f" % kv
                                         for kv in bp["sections"].items())))
@@ -3303,7 +3585,23 @@ def main():
         "bound_ms": r["bound_us"] / 1e3,
         "bound_by": r["bound_by"],
         "library_ms": None,            # no PyTorch call computes it
-    } for r in lm]}))
+    } for r in lm] + [{
+        "name": r["kernel"],
+        "route": "cuda",
+        "source": "sdpl_slam_torch/csrc/line_detect.cu",
+        "replaces": None,              # XLA in the JAX package
+        # the launches of the main path's runs that FAST's entry counts:
+        # the disk path and the bench phase, a detector replay counting
+        # its captured launches
+        "launches": (res["line_launches"][r["kernel"] == "merge_rounds"]
+                     + bp["line_launches"][r["kernel"] == "merge_rounds"]),
+        "max_abs_err": r["max_err"],
+        "ms": r["dev_us"] / 1e3,
+        "plain_ms": r["plain_us"] / 1e3,
+        "bound_ms": r["bound_us"] / 1e3,
+        "bound_by": r["bound_by"],
+        "library_ms": None,            # no PyTorch call computes it
+    } for r in krows if r["shape"] == "kitti" and r["octave"] == 0]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))

@@ -118,10 +118,12 @@ class ResidentState(NamedTuple):
 
 
 # the host counters of the hand-written kernels a captured program
-# launches (FAST, the joint LM's body): a graph adds what its capture
-# counted at every launch
+# launches (FAST, the joint LM's body, the line detector's NFA gate and
+# merge rounds): a graph adds what its capture counted at every launch
 KERNEL_COUNTERS = ((fast_ops.fast_score_pyramid, "launches"),
-                   (fs.lm_iteration_cuda, "launches"))
+                   (fs.lm_iteration_cuda, "launches"),
+                   (line_ops.nfa_significance_cuda, "launches"),
+                   (line_ops.merge_rounds_cuda, "launches"))
 
 
 def _i32(x):

@@ -29,6 +29,14 @@ here, ``jax.lax.top_k`` is the stable sort that keeps its tie order, the
 segment sums go through the fixed-order scatter-add, and the regularised
 incomplete beta function, which PyTorch lacks, is :func:`betainc`.
 
+On the card two stages are one hand-written kernel each
+(``csrc/line_detect.cu``): the NFA gate (:func:`nfa_significance_cuda`) and
+the tile merge rounds (:func:`merge_rounds_cuda`); as plain PyTorch they
+are ~9,400 tiny kernels a frame.  :func:`_nfa_significance` and
+:func:`_merge_rounds` launch them for CUDA tensors and run the plain
+versions (:func:`_nfa_significance_torch`, :func:`_merge_rounds_torch`)
+for CPU tensors.
+
 Output: (L, 4) endpoint arrays (sx, sy, ex, ey) + validity, like the
 injected detections ``Tracking.grab_rgbd`` takes.  LBD descriptors are not
 computed: the reference matches lines by optical flow, never by descriptor.
@@ -36,6 +44,7 @@ computed: the reference matches lines by optical flow, never by descriptor.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import cuda_build
 from ..utils.device import scatter_add
 from .fast import _topk_stable
 
@@ -482,17 +492,33 @@ def _nfa_consts(device):
             torch.tensor(_NFA_COMBOS, dtype=torch.float32, device=device))
 
 
-def _nfa_significance(uv4, gx, gy, cfg: LineDetectConfig):
-    """Best of the 7 row-subset significances  -log10 B(n, k, p0) - logNT
-    of each candidate; see :func:`_nfa_gate`.  Also returns the (k, n)
-    counts it scored, for tests."""
-    h, w = gx.shape
-    dev = gx.device
-    S = cfg.nfa_samples
+def _nfa_params(h: int, w: int, cfg: LineDetectConfig):
+    """(S, p0, sin_prec, logNT) of the NFA gate on an (h, w) image."""
     p0 = cfg.nfa_ang_tol_deg / 180.0
     sin_prec = float(np.sin(np.float32(np.pi * p0)))
     logNT = (2.5 * np.log10(float(h) * float(w)) + np.log10(11.0)
              + np.log10(7.0))
+    return cfg.nfa_samples, p0, sin_prec, logNT
+
+
+def _nfa_significance(uv4, gx, gy, cfg: LineDetectConfig):
+    """Best of the 7 row-subset significances  -log10 B(n, k, p0) - logNT
+    of each candidate; see :func:`_nfa_gate`.  Also returns the (k, n)
+    counts it scored, for tests.  On the card one launch of
+    :func:`nfa_significance_cuda`; on the CPU the plain chain
+    :func:`_nfa_significance_torch`."""
+    if uv4.is_cuda:
+        return nfa_significance_cuda(uv4, gx, gy, cfg)
+    return _nfa_significance_torch(uv4, gx, gy, cfg)
+
+
+def _nfa_significance_torch(uv4, gx, gy, cfg: LineDetectConfig):
+    """:func:`_nfa_significance` in plain PyTorch, on any device: the
+    version the CPU tests hold against the JAX package and the card holds
+    the kernel against."""
+    h, w = gx.shape
+    dev = gx.device
+    S, p0, sin_prec, logNT = _nfa_params(h, w, cfg)
 
     s, e = uv4[:, :2], uv4[:, 2:]
     d = e - s
@@ -557,7 +583,20 @@ def _merge_rounds(seg, ok, cfg: LineDetectConfig):
     """Merge rounds over 4 neighbour directions (right, down, down-right,
     down-left).  Round r looks at stride 2^r (parallel-reduction style:
     merged segments live in the 'left' tile, so chains double in reach
-    each round).  Consumed neighbours are invalidated."""
+    each round).  Consumed neighbours are invalidated.  On the card one
+    launch of :func:`merge_rounds_cuda` (none without rounds); on the CPU
+    the plain chain :func:`_merge_rounds_torch`."""
+    if not seg.is_cuda:
+        return _merge_rounds_torch(seg, ok, cfg)
+    if cfg.merge_rounds <= 0:
+        return seg, ok
+    return merge_rounds_cuda(seg, ok, cfg)
+
+
+def _merge_rounds_torch(seg, ok, cfg: LineDetectConfig):
+    """:func:`_merge_rounds` in plain PyTorch, on any device: the version
+    the CPU tests hold against the JAX package and the card holds the
+    kernel against, bit for bit."""
     gh, gw = ok.shape
     dev = ok.device
     rows, cols = _iota(gh, gw, 0, dev), _iota(gh, gw, 1, dev)
@@ -582,6 +621,100 @@ def _merge_rounds(seg, ok, cfg: LineDetectConfig):
             back_ok = (rows >= dy) & (cols >= dx if dx >= 0 else cols < gw + dx)
             ok = ok & ~(consumed & back_ok)
     return seg, ok
+
+
+# ---------------------------------------------------------------------------
+# the card's kernels (csrc/line_detect.cu)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=1)
+def _line_kernels():
+    """(``sdpl_nfa_significance``, ``sdpl_merge_rounds``) from
+    csrc/line_detect.cu, built at first use."""
+    lib = cuda_build.load("line_detect.cu")
+    nfa = lib.sdpl_nfa_significance
+    nfa.restype = ctypes.c_int
+    nfa.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                    + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+    merge = lib.sdpl_merge_rounds
+    merge.restype = ctypes.c_int
+    merge.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_float] * 3 + [ctypes.c_void_p])
+    return nfa, merge
+
+
+@functools.lru_cache(maxsize=8)
+def _nfa_positions(device, S: int):
+    """``torch.linspace(0, 1, S)`` on ``device``, made there once: the
+    kernel reads the plain chain's sample positions."""
+    return torch.linspace(0.0, 1.0, S, dtype=torch.float32, device=device)
+
+
+def _launch(what: str, fn, dev, *args):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError("line_detect.cu: %s launch failed: cudaError_t %d"
+                           % (what, err))
+
+
+def nfa_significance_cuda(uv4, gx, gy, cfg: LineDetectConfig):
+    """:func:`_nfa_significance` on the card: one launch of
+    ``csrc/line_detect.cu`` for every candidate (32 a block), on the
+    current stream, counted in ``nfa_significance_cuda.launches`` (a
+    captured call once a replay of its graph, through a
+    ``GraphRecorder``'s counters).  ``uv4`` (N, 4) and ``gx``, ``gy``
+    (h, w) float32, contiguous, on one CUDA device; anything else raises.
+    Returns (best (N,), k (N, 7), n (N, 7)) as the plain chain does."""
+    N = uv4.shape[0] if uv4.dim() == 2 else -1
+    h, w = gx.shape if gx.dim() == 2 else (-1, -1)
+    f32 = torch.float32
+    dev = cuda_build.check_inputs("nfa_significance_cuda", (
+        ("uv4", uv4, f32, (N, 4)), ("gx", gx, f32, (h, w)),
+        ("gy", gy, f32, (h, w))))
+    S, p0, sin_prec, logNT = _nfa_params(h, w, cfg)
+    best = torch.empty(N, dtype=f32, device=dev)
+    k = torch.empty(N, len(_NFA_COMBOS), dtype=f32, device=dev)
+    n = torch.empty_like(k)
+    if N == 0:
+        return best, k, n
+    # PyTorch divides a CUDA tensor by a Python scalar as a product with
+    # its float32 reciprocal
+    inv_S = float(np.float32(1.0) / np.float32(S))
+    _launch("nfa_significance", _line_kernels()[0], dev, uv4.data_ptr(),
+            gx.data_ptr(), gy.data_ptr(), _nfa_positions(dev, S).data_ptr(),
+            best.data_ptr(), k.data_ptr(), n.data_ptr(), N, h, w, S,
+            float(cfg.grad_threshold) ** 2, sin_prec, inv_S, p0, logNT)
+    nfa_significance_cuda.launches += 1
+    return best, k, n
+
+
+nfa_significance_cuda.launches = 0
+
+
+def merge_rounds_cuda(seg, ok, cfg: LineDetectConfig):
+    """:func:`_merge_rounds` on the card: all ``cfg.merge_rounds`` rounds
+    in one launch of ``csrc/line_detect.cu`` (one block; the tile grid in
+    shared memory while it fits), on the current stream, counted in
+    ``merge_rounds_cuda.launches`` as :func:`nfa_significance_cuda` is.
+    ``seg`` (gh, gw, 4) float32 and ``ok`` (gh, gw) bool, contiguous, on
+    one CUDA device; anything else raises.  Returns new (seg, ok), equal
+    to the plain chain's bit for bit."""
+    gh, gw = ok.shape if ok.dim() == 2 else (-1, -1)
+    dev = cuda_build.check_inputs("merge_rounds_cuda", (
+        ("seg", seg, torch.float32, (gh, gw, 4)),
+        ("ok", ok, torch.bool, (gh, gw))))
+    seg_out, ok_out = torch.empty_like(seg), torch.empty_like(ok)
+    if ok.numel() == 0:
+        return seg_out, ok_out
+    _launch("merge_rounds", _line_kernels()[1], dev, seg.data_ptr(),
+            ok.data_ptr(), seg_out.data_ptr(), ok_out.data_ptr(), gh, gw,
+            int(cfg.merge_rounds), float(cfg.merge_angle_cos),
+            float(cfg.merge_lateral), float(cfg.merge_gap))
+    merge_rounds_cuda.launches += 1
+    return seg_out, ok_out
+
+
+merge_rounds_cuda.launches = 0
 
 
 def _detect_octave(img: torch.Tensor, cfg: LineDetectConfig) -> Segments:

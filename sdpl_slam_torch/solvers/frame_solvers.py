@@ -55,6 +55,7 @@ import torch
 
 from ..ops import geometry, lie
 from ..ops.geometry import Intrinsics
+from ..utils import cuda_build
 from ..utils.cuda_graphs import run_loop
 
 
@@ -555,8 +556,6 @@ def _lm_kernel():
     """(``sdpl_flow_pose_lm_iteration``, most threads a lane,
     ``sdpl_flow_pose_lm_runs``) from csrc/flow_pose_lm.cu, built at first
     use."""
-    from ..utils import cuda_build
-
     lib = cuda_build.load("flow_pose_lm.cu")
     fn = lib.sdpl_flow_pose_lm_iteration
     fn.restype = ctypes.c_int
@@ -618,18 +617,7 @@ def lm_iteration_cuda(s: LMState) -> None:
         ("active_any", s.active_any, b8, ()),
         ("f_try", s.f_try, f32, (B, N, 2)), ("g_try", s.g_try, f32, (B, M, 4)),
         ("ticket", s.ticket, torch.int32, ()))
-    dev = s.T.device
-    if dev.type != "cuda":
-        raise ValueError("lm_iteration_cuda: the state lies on %s" % dev)
-    for name, t, dtype, shape in want:
-        if t is None or t.device != dev:
-            raise ValueError("lm_iteration_cuda: %s on %s, the state on %s"
-                             % (name, None if t is None else t.device, dev))
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError("lm_iteration_cuda: %s is %s %s, wants %s %s"
-                             % (name, t.dtype, tuple(t.shape), dtype, shape))
-        if not t.is_contiguous():
-            raise ValueError("lm_iteration_cuda: %s is not contiguous" % name)
+    dev = cuda_build.check_inputs("lm_iteration_cuda", want)
     fn, most, _ = _lm_kernel()
     items = N + (M if p.use_lines else 0)
     threads = min(most, max(32, -(-items // 32) * 32))

@@ -81,3 +81,25 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _LOADED[source] = lib
         return lib
+
+
+def check_inputs(name: str, want):
+    """The CUDA device of ``want``'s (label, tensor, dtype, shape) rows, a
+    kernel's arguments; raises ValueError unless each is a tensor of its
+    dtype and shape, contiguous, and all lie on one CUDA device."""
+    for label, t, dtype, shape in want:
+        if t is None:
+            raise ValueError("%s: %s is missing" % (name, label))
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError("%s: %s is %s %s, wants %s %s" % (
+                name, label, t.dtype, tuple(t.shape), dtype, shape))
+        if not t.is_contiguous():
+            raise ValueError("%s: %s is not contiguous" % (name, label))
+    dev = want[0][1].device
+    if dev.type != "cuda":
+        raise ValueError("%s: %s lies on %s" % (name, want[0][0], dev))
+    for label, t, _, _ in want[1:]:
+        if t.device != dev:
+            raise ValueError("%s: %s on %s, %s on %s"
+                             % (name, label, t.device, want[0][0], dev))
+    return dev
